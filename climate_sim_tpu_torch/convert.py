@@ -1,0 +1,37 @@
+"""Carry a run's state from the JAX package into the port.
+
+The stencil system has no weights; what a run carries is its config and its
+field.  :func:`from_reference` takes the JAX package's
+``climate_sim_tpu.config.config_to_dict(cfg)`` and a numpy field and returns
+the port's :class:`SimConfig` and the field as a tensor on the given device,
+in the config's precision.  It imports nothing from ``climate_sim_tpu``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from .config import SimConfig, load_yaml_dict
+from .ops.init import DTYPES
+
+
+def from_reference(
+    cfg_dict: Dict[str, Any], u, device="cpu"
+) -> Tuple[SimConfig, torch.Tensor]:
+    """(port config, field tensor) from a JAX config dict and a field.
+
+    The dict is the flat form ``config_to_dict`` emits, which the port's
+    loader reads back exactly; the config is validated.  The field must
+    have the config's (ny, nx) shape.
+    """
+    cfg = load_yaml_dict(dict(cfg_dict))
+    field = np.asarray(u)
+    if field.shape != (cfg.ny, cfg.nx):
+        raise ValueError(
+            f"field shape {field.shape} != (ny={cfg.ny}, nx={cfg.nx})"
+        )
+    t = torch.as_tensor(field).to(device=device, dtype=DTYPES[cfg.precision])
+    return cfg, t.contiguous()

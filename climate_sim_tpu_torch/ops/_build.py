@@ -1,0 +1,123 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``climate_sim_tpu_torch/csrc/`` compile with ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, which
+:mod:`ctypes` loads.  The build runs at first use, into
+``climate_sim_tpu_torch/_build/``, and again whenever the sources' hash
+changes: the library's file name carries the hash.  Nothing here imports
+``torch.utils.cpp_extension``, which takes minutes on the PyTorch headers.
+
+``nvcc`` is looked up in ``$CUDA_HOME/bin``, then on ``PATH``, then in
+``/usr/local/cuda/bin``; without it the build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from typing import List
+
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
+BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
+DEFAULT_CUDA_BIN = "/usr/local/cuda/bin"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+@dataclass
+class KernelLibrary:
+    """The loaded library, and how it came to be."""
+
+    lib: ctypes.CDLL
+    path: str
+    built: bool        # False: a library with the same hash was on disk
+    seconds: float     # build time (0 on a cache hit)
+    log: str           # nvcc's output, ptxas register/spill lines included
+
+
+def kernel_sources() -> List[str]:
+    """The CUDA sources the library is built from, in a fixed order."""
+    names = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cu"))
+    if not names:
+        raise FileNotFoundError(f"no CUDA sources in {CSRC_DIR}")
+    return [os.path.join(CSRC_DIR, n) for n in names]
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH, else the toolkit's
+    default location; raises when none exists."""
+    cuda_home = os.environ.get("CUDA_HOME")
+    candidates = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append(os.path.join(DEFAULT_CUDA_BIN, "nvcc"))
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and"
+        f" {DEFAULT_CUDA_BIN}); the CUDA kernels cannot be built"
+    )
+
+
+def sources_hash(sources: List[str]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    fn = lib.climate_multistep_stencil
+    fn.argtypes = [
+        vp, vp, ci, ci, ci, ci,          # in, out, ny, nx, k, dtype
+        cd, cd, cd, cd, cd,              # wc, wxm, wxp, wym, wyp
+        ci, ci, ci, ci,                  # fix left, right, bottom, top
+        cd, vp,                          # bc_value, stream
+    ]
+    fn.restype = ci
+    err = lib.climate_cuda_error_string
+    err.argtypes = [ci]
+    err.restype = ctypes.c_char_p
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> KernelLibrary:
+    """Build the library if no build of the current sources exists, then
+    load it.  Raises on a missing ``nvcc`` or a failed build."""
+    sources = kernel_sources()
+    path = os.path.join(BUILD_DIR, f"libclimate_kernels_{sources_hash(sources)}.so")
+    built, seconds, log = False, 0.0, ""
+    if not os.path.exists(path):
+        nvcc = find_nvcc()
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, *sources],
+            capture_output=True, text=True,
+        )
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, path)  # atomic: a reader never sees a partial file
+        built = True
+    lib = ctypes.CDLL(path)
+    _declare(lib)
+    return KernelLibrary(lib=lib, path=path, built=built, seconds=seconds, log=log)

@@ -1,0 +1,204 @@
+"""K1, the multi-step stencil kernel, and the advance built on it.
+
+The port of ``climate_sim_tpu/ops/pallas_stencil.py``'s single-device path:
+``multistep_kernel_step`` advances the global (ny, nx) field ``k`` steps in
+one pass of the hand-written CUDA kernel ``csrc/multistep_stencil.cu``, and
+``build_multistep_advance`` chains such passes into chunk programs.
+
+The update is linear with config-constant coefficients, so one Euler step
+collapses to a 5-point weighted stencil (:func:`_stencil_weights`).  The
+kernel keeps a k-deep halo window per tile on chip and re-pins the
+physical-edge ghosts at every sub-step, so one pass equals ``k`` iterations
+of ``pad_with_ghosts`` + the weighted stencil (:func:`multistep_pass_plain`)
+for every grid shape, BC mix and dtype; it never declines, and the advance
+has no per-pass fallback.
+
+bf16 is a storage mode: f32 arithmetic, one rounding per pass.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List
+
+import torch
+
+from ..config import BCType, SimConfig
+from .boundary import pad_with_ghosts
+
+# Side codes of the C interface (csrc/multistep_stencil.cu).
+_FIX_NONE, _FIX_DIRICHLET, _FIX_NEUMANN, _FIX_ZERO = 0, 1, 2, 3
+_DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+MAX_STEPS_PER_PASS = 32
+
+
+def _stencil_weights(dt, D, vx, vy, dx, dy):
+    """The unsplit Euler update collapsed to a 5-point weighted stencil:
+    u' = wc*c + wxm*xm + wxp*xp + wym*ym + wyp*yp (upwind signs resolved
+    statically)."""
+    ax = dt * D / (dx * dx)
+    ay = dt * D / (dy * dy)
+    cx = dt * vx / dx
+    cy = dt * vy / dy
+    wc = 1.0 - 2.0 * ax - 2.0 * ay - abs(cx) - abs(cy)
+    wxm = ax + (cx if vx >= 0.0 else 0.0)
+    wxp = ax + (-cx if vx < 0.0 else 0.0)
+    wym = ay + (cy if vy >= 0.0 else 0.0)
+    wyp = ay + (-cy if vy < 0.0 else 0.0)
+    return wc, wxm, wxp, wym, wyp
+
+
+def _fix_code(bc: BCType, compat: bool) -> int:
+    """What the kernel's edge rule does on a physical side."""
+    if bc == BCType.DIRICHLET:
+        return _FIX_DIRICHLET
+    if bc == BCType.NEUMANN:
+        return _FIX_NEUMANN
+    # periodic: live wrap, or the reference's stale-zero ghosts under compat
+    return _FIX_ZERO if compat else _FIX_NONE
+
+
+def one_sided_periodic_x(cfg: SimConfig) -> bool:
+    """Exactly one of left/right periodic (wrap live, i.e. not compat)."""
+    if cfg.strict_reference_compat:
+        return False
+    P = BCType.PERIODIC
+    return (cfg.bc.left == P) != (cfg.bc.right == P)
+
+
+def one_sided_periodic_y(cfg: SimConfig) -> bool:
+    """Exactly one of bottom/top periodic (wrap live, i.e. not compat)."""
+    if cfg.strict_reference_compat:
+        return False
+    P = BCType.PERIODIC
+    return (cfg.bc.bottom == P) != (cfg.bc.top == P)
+
+
+def one_sided_periodic(cfg: SimConfig) -> bool:
+    """True when exactly one side of an axis is periodic and wrap is live,
+    e.g. the reference's own dev.yaml (``bottom=periodic top=dirichlet``).
+    The periodic side's ghost is the opposite edge's current line, while the
+    opposite side keeps its own BC.  The kernel's edge rule covers this case
+    like any other, so nothing on the port branches on it; it is kept for
+    parity with the JAX package and for reports."""
+    return one_sided_periodic_x(cfg) or one_sided_periodic_y(cfg)
+
+
+def pick_steps_per_pass(cfg: SimConfig, chunk: int) -> int:
+    """Choose k (steps fused per device-memory pass) for a ``chunk``-step
+    program: ``cfg.steps_per_pass`` or 8, clamped by the chunk and by the
+    grid-extent floor.  Identical to the JAX package's choice, so both run
+    the same pass schedule and, in bf16, round at the same steps."""
+    cap = getattr(cfg, "steps_per_pass", 0) or 8
+    k = min(cap, chunk, max(1, cfg.nx // 32), max(1, cfg.ny // 32))
+    return max(1, k)
+
+
+def pass_schedule(cfg: SimConfig, chunk: int) -> List[int]:
+    """Steps per kernel pass for a ``chunk``-step program: full passes of
+    ``pick_steps_per_pass`` steps, then one remainder pass."""
+    k = pick_steps_per_pass(cfg, chunk)
+    full, rest = divmod(chunk, k)
+    return [k] * full + ([rest] if rest else [])
+
+
+def multistep_pass_plain(
+    u: torch.Tensor, cfg: SimConfig, dt: float, k: int
+) -> torch.Tensor:
+    """The plain version of K1: ``k`` iterations of ``pad_with_ghosts`` plus
+    the weighted 5-point stencil, in the kernel's accumulation order.  bf16
+    input computes in f32 and rounds once at the end of the pass."""
+    wc, wxm, wxp, wym, wyp = _stencil_weights(
+        dt, cfg.D, cfg.vx, cfg.vy, cfg.dx, cfg.dy
+    )
+    compat = cfg.strict_reference_compat
+    a = u.to(torch.float32) if u.dtype == torch.bfloat16 else u
+    for _ in range(k):
+        up = pad_with_ghosts(a, cfg.bc, 0.0, compat)
+        c = up[1:-1, 1:-1]
+        a = (
+            wc * c
+            + wym * up[:-2, 1:-1]
+            + wyp * up[2:, 1:-1]
+            + wxm * up[1:-1, :-2]
+            + wxp * up[1:-1, 2:]
+        )
+    return a.to(u.dtype)
+
+
+def _check(u: torch.Tensor, cfg: SimConfig, k: int) -> None:
+    if not isinstance(u, torch.Tensor):
+        raise TypeError(f"expected a torch.Tensor, got {type(u).__name__}")
+    if tuple(u.shape) != (cfg.ny, cfg.nx):
+        raise ValueError(
+            f"field shape {tuple(u.shape)} != (ny={cfg.ny}, nx={cfg.nx})"
+        )
+    if u.dtype not in _DTYPE_CODES:
+        raise TypeError(f"unsupported dtype {u.dtype} (float32|float64|bfloat16)")
+    if not u.is_contiguous():
+        raise ValueError("field must be contiguous")
+    if not isinstance(k, int) or not 1 <= k <= MAX_STEPS_PER_PASS:
+        raise ValueError(f"k must be an int in [1, {MAX_STEPS_PER_PASS}], got {k!r}")
+
+
+def multistep_kernel_step(
+    u: torch.Tensor, cfg: SimConfig, dt: float, k: int
+) -> torch.Tensor:
+    """Advance the global field ``k`` steps with one pass of K1.
+
+    A CUDA tensor launches the kernel on the current stream into a fresh
+    output (the input is never written) or raises; a CPU tensor takes the
+    plain version.  ``multistep_kernel_step.launches`` counts the launches.
+    """
+    _check(u, cfg, k)
+    if u.device.type == "cpu":
+        return multistep_pass_plain(u, cfg, dt, k)
+    if u.device.type != "cuda":
+        raise RuntimeError(f"K1 runs on cuda or cpu tensors, not {u.device}")
+    from ._build import load_library
+
+    lib = load_library().lib
+    compat = cfg.strict_reference_compat
+    fixes = [
+        _fix_code(b, compat)
+        for b in (cfg.bc.left, cfg.bc.right, cfg.bc.bottom, cfg.bc.top)
+    ]
+    weights = _stencil_weights(dt, cfg.D, cfg.vx, cfg.vy, cfg.dx, cfg.dy)
+    out = torch.empty_like(u)
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        err = lib.climate_multistep_stencil(
+            u.data_ptr(), out.data_ptr(), cfg.ny, cfg.nx, k,
+            _DTYPE_CODES[u.dtype], *weights, *fixes, 0.0, stream,
+        )
+    if err:
+        msg = lib.climate_cuda_error_string(err).decode()
+        raise RuntimeError(f"K1 launch failed: CUDA error {err} ({msg})")
+    multistep_kernel_step.launches += 1
+    return out
+
+
+multistep_kernel_step.launches = 0
+
+
+def build_multistep_advance(
+    cfg: SimConfig, dt: float
+) -> Callable[[int], Callable[[torch.Tensor], torch.Tensor]]:
+    """``advance(chunk)`` -> fn advancing the global field ``chunk`` steps
+    in K1 passes (:func:`pass_schedule`).  Every pass goes to
+    :func:`multistep_kernel_step`; nothing falls back per pass.
+    ``advance.pass_count(chunk)`` is the number of passes, and with it of
+    bf16 rounding events, in such a program."""
+
+    def advance(chunk: int):
+        schedule = pass_schedule(cfg, chunk)
+
+        def body(u: torch.Tensor) -> torch.Tensor:
+            for kk in schedule:
+                u = multistep_kernel_step(u, cfg, dt, kk)
+            return u
+
+        return body
+
+    advance.pass_count = lambda chunk: len(pass_schedule(cfg, chunk))
+    advance.uses_kernel = True
+    return advance
