@@ -4,7 +4,10 @@ The stencil system has no weights; what a run carries is its config and its
 field.  :func:`from_reference` takes the JAX package's
 ``climate_sim_tpu.config.config_to_dict(cfg)`` and a numpy field and returns
 the port's :class:`SimConfig` and the field as a tensor on the given device,
-in the config's precision.  It imports nothing from ``climate_sim_tpu``.
+in the config's precision; :func:`from_reference_sharded` returns the field
+as the tile grid of a mesh instead (the JAX field is then ``np.asarray`` of
+a sharded ``jax.Array``), and :func:`.parallel.mesh.gather_field` is its
+inverse.  It imports nothing from ``climate_sim_tpu``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 
 from .config import SimConfig, load_yaml_dict
 from .ops.init import DTYPES
+from .parallel.mesh import Mesh, Tiles, shard_field
 
 
 def from_reference(
@@ -33,5 +37,14 @@ def from_reference(
         raise ValueError(
             f"field shape {field.shape} != (ny={cfg.ny}, nx={cfg.nx})"
         )
-    t = torch.as_tensor(field).to(device=device, dtype=DTYPES[cfg.precision])
+    t = torch.tensor(field).to(device=device, dtype=DTYPES[cfg.precision])
     return cfg, t.contiguous()
+
+
+def from_reference_sharded(
+    cfg_dict: Dict[str, Any], u, mesh: Mesh
+) -> Tuple[SimConfig, Tiles]:
+    """(port config, tile grid on ``mesh``) from a JAX config dict and the
+    global field; the mesh must divide the config's grid."""
+    cfg, t = from_reference(cfg_dict, u, "cpu")
+    return cfg, shard_field(t, mesh)

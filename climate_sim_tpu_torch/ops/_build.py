@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``climate_sim_tpu_torch/csrc/`` compile with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, which
-:mod:`ctypes` loads.  The build runs at first use, into
-``climate_sim_tpu_torch/_build/``, and again whenever the sources' hash
-changes: the library's file name carries the hash.  Nothing here imports
+The sources under ``climate_sim_tpu_torch/csrc/`` (``*.cu``, which include
+the shared ``*.cuh`` headers) compile with ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, which :mod:`ctypes` loads.  The
+build runs at first use, into ``climate_sim_tpu_torch/_build/``, and again
+whenever the hash of the sources and headers changes: the library's file
+name carries the hash.  Nothing here imports
 ``torch.utils.cpp_extension``, which takes minutes on the PyTorch headers.
 
 ``nvcc`` is looked up in ``$CUDA_HOME/bin``, then on ``PATH``, then in
@@ -46,12 +47,23 @@ class KernelLibrary:
     log: str           # nvcc's output, ptxas register/spill lines included
 
 
+def _csrc_files(suffix: str) -> List[str]:
+    names = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(suffix))
+    return [os.path.join(CSRC_DIR, n) for n in names]
+
+
 def kernel_sources() -> List[str]:
     """The CUDA sources the library is built from, in a fixed order."""
-    names = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cu"))
-    if not names:
+    sources = _csrc_files(".cu")
+    if not sources:
         raise FileNotFoundError(f"no CUDA sources in {CSRC_DIR}")
-    return [os.path.join(CSRC_DIR, n) for n in names]
+    return sources
+
+
+def kernel_headers() -> List[str]:
+    """The headers the sources include; they enter the hash, so an edit to
+    one rebuilds the library."""
+    return _csrc_files(".cuh")
 
 
 def find_nvcc() -> str:
@@ -82,15 +94,28 @@ def sources_hash(sources: List[str]) -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    fn = lib.climate_multistep_stencil
-    fn.argtypes = [
-        vp, vp, ci, ci, ci, ci,          # in, out, ny, nx, k, dtype
-        cd, cd, cd, cd, cd,              # wc, wxm, wxp, wym, wyp
-        ci, ci, ci, ci,                  # fix left, right, bottom, top
-        cd, vp,                          # bc_value, stream
-    ]
-    fn.restype = ci
+    vp, ci, cd, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
+    weights = [cd] * 5                   # wc, wxm, wxp, wym, wyp
+    sides = [ci] * 4                     # left, right, bottom, top
+    signatures = {
+        # K1: in, out, ny, nx, k, dtype, weights, fixes, bc_value, stream
+        "climate_multistep_stencil":
+            [vp, vp, ci, ci, ci, ci, *weights, *sides, cd, vp],
+        # K2: in, out, ny, nx, dtype, weights, stream
+        "climate_prepadded_step": [vp, vp, ci, ci, ci, *weights, vp],
+        # K3: in, ld_in, out, ld_out, ny, nx, k, kh, dtype, weights, fixes,
+        #     edge flags, bc_value, stream
+        "climate_region_multistep":
+            [vp, cll, vp, cll, ci, ci, ci, ci, ci, *weights, *sides, *sides, cd, vp],
+        # K4: tile, xhalo, yhalo, out, ny, nx, k, kh, dtype, weights, fixes,
+        #     edge flags, bc_value, stream
+        "climate_slab_multistep":
+            [vp, vp, vp, vp, ci, ci, ci, ci, ci, *weights, *sides, *sides, cd, vp],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ci
     err = lib.climate_cuda_error_string
     err.argtypes = [ci]
     err.restype = ctypes.c_char_p
@@ -101,7 +126,8 @@ def load_library() -> KernelLibrary:
     """Build the library if no build of the current sources exists, then
     load it.  Raises on a missing ``nvcc`` or a failed build."""
     sources = kernel_sources()
-    path = os.path.join(BUILD_DIR, f"libclimate_kernels_{sources_hash(sources)}.so")
+    digest = sources_hash(sources + kernel_headers())
+    path = os.path.join(BUILD_DIR, f"libclimate_kernels_{digest}.so")
     built, seconds, log = False, 0.0, ""
     if not os.path.exists(path):
         nvcc = find_nvcc()

@@ -201,4 +201,5 @@ def build_multistep_advance(
 
     advance.pass_count = lambda chunk: len(pass_schedule(cfg, chunk))
     advance.uses_kernel = True
+    advance.kernel = "K1"
     return advance

@@ -1,10 +1,12 @@
-"""Step-function assembly for the single-device path.
+"""Step-function assembly: picks the interior step and the single-device
+advance.
 
 The reference's time-loop body (main.cpp:101-109) is: halo exchange ->
 apply_boundary -> copy -> diffusion_step -> advection_step (accumulating) ->
 swap.  Functionally that is ``u' = fused_step(pad_with_ghosts(u))``, which
 the plain per-step path computes here; the kernel path computes the same
-``k`` steps at a time in K1 (:mod:`.cuda_stencil`).
+``k`` steps at a time in K1 (:mod:`.cuda_stencil`), and the per-step
+sharded path one step per tile in K2 (:mod:`.cuda_sharded`).
 """
 
 from __future__ import annotations
@@ -32,9 +34,14 @@ def select_kernel(cfg: SimConfig, device) -> str:
 def make_interior_step(
     cfg: SimConfig, dt: float
 ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Return fn: ghost-padded tile (my+2, mx+2) -> updated interior (my, mx),
-    in torch ops.  (The JAX package routes kernel=pallas here to its
-    pre-padded single-step kernel, which the port has not ported yet.)"""
+    """Return fn: ghost-padded tile (my+2, mx+2) -> updated interior (my, mx).
+    With the kernel named (``pallas``/``pallas_multistep``) that is K2,
+    which runs its plain version on a CPU tile; otherwise (``jnp``, and
+    ``auto``, which has no device to resolve against here) torch ops."""
+    if cfg.kernel in KERNEL_VALUES:
+        from .cuda_sharded import make_pallas_interior_step
+
+        return make_pallas_interior_step(cfg, dt)
 
     def step(up: torch.Tensor) -> torch.Tensor:
         # bf16 is a STORAGE format: f32 arithmetic, one rounding per step.
@@ -66,6 +73,7 @@ def build_single_device_advance(cfg: SimConfig, dt: float, device):
 
     advance.pass_count = lambda k: k
     advance.uses_kernel = False
+    advance.kernel = None
     return advance
 
 

@@ -1,0 +1,170 @@
+"""The tile mesh: the port of ``climate_sim_tpu/parallel/mesh.py``, the
+counterpart of the reference's 2D Cartesian process grid
+(reference: src/decomp.cpp:5-34).
+
+The JAX package runs its sharded path as one program over a ``Mesh`` of
+devices (``shard_map``).  The port runs it in one process over a
+:class:`Mesh` of torch devices: a (py, px) grid of devices, one tile of the
+field each.  A device may appear more than once, so one card can run a
+real 2x2 decomposition (the counterpart of JAX's virtual CPU devices), and
+tiles on distinct cards exchange halos by peer copies.  Devices are laid
+out in list order; the JAX package's TPU-topology layout
+(``_topology_aware_grid``, ``dcn_granule_count``) has no counterpart here.
+
+The field on a mesh is a (py, px) grid (a list of rows) of contiguous tile
+tensors, tile [y][x] on ``mesh.devices[y][x]``: :func:`shard_field` and
+:func:`gather_field` convert between it and the global (ny, nx) tensor.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+Tiles = List[List[torch.Tensor]]
+
+
+def dims_create(size: int) -> Tuple[int, int]:
+    """Near-square factorization (px, py) with px >= py, px*py == size —
+    the MPI_Dims_create(…, 2, …) contract."""
+    best = (size, 1)
+    a = int(size**0.5)
+    while a >= 1:
+        if size % a == 0:
+            best = (size // a, a)
+            break
+        a -= 1
+    return best
+
+
+def choose_mesh_shape(
+    n_devices: int,
+    nx: int,
+    ny: int,
+    req_x: Optional[int] = None,
+    req_y: Optional[int] = None,
+) -> Tuple[int, int]:
+    """Pick (px, py) for the ('x','y') decomposition of an (ny, nx) grid.
+
+    Honors explicit requests; otherwise scans factorizations from
+    near-square outward and returns the first whose shards divide the grid
+    evenly.  Falls back to the near-square factorization even if indivisible
+    (the JAX package then takes its carrier or GSPMD path; the port's
+    driver raises, those paths not being ported).
+    """
+    if req_x is not None and req_y is not None:
+        if req_x * req_y != n_devices:
+            raise ValueError(
+                f"mesh {req_x}x{req_y} != device count {n_devices}"
+            )
+        return req_x, req_y
+    if req_x is not None:
+        if n_devices % req_x:
+            raise ValueError(f"mesh.x={req_x} does not divide {n_devices}")
+        return req_x, n_devices // req_x
+    if req_y is not None:
+        if n_devices % req_y:
+            raise ValueError(f"mesh.y={req_y} does not divide {n_devices}")
+        return n_devices // req_y, req_y
+
+    # All factor pairs, ordered by closeness to square (MPI_Dims_create-like,
+    # biased px >= py), preferring even division of the grid.
+    pairs: List[Tuple[int, int]] = []
+    a = int(n_devices**0.5)
+    while a >= 1:
+        if n_devices % a == 0:
+            pairs.append((n_devices // a, a))
+            if a != n_devices // a:
+                pairs.append((a, n_devices // a))
+        a -= 1
+    for px, py in pairs:
+        if nx % px == 0 and ny % py == 0:
+            return px, py
+    return dims_create(n_devices)
+
+
+class Mesh:
+    """A (py, px) grid of torch devices, named like JAX's ('y', 'x') mesh.
+
+    ``shape`` is ``{"x": px, "y": py}``; ``devices[y][x]`` holds tile
+    (y, x).  ``copies`` counts the halo payloads the exchanges of
+    :mod:`.halo` deliver, keyed ``(axis, wrapped)``: ``wrapped`` is True
+    for a payload that crosses the axis's wrap edge (tile p-1 to tile 0 or
+    back).
+    """
+
+    def __init__(self, grid: Sequence[Sequence[torch.device]]):
+        self.devices = tuple(tuple(torch.device(d) for d in row) for row in grid)
+        py, px = len(self.devices), len(self.devices[0])
+        if any(len(row) != px for row in self.devices):
+            raise ValueError("mesh rows differ in length")
+        self.shape = {"x": px, "y": py}
+        self.copies = collections.Counter()
+
+    @property
+    def size(self) -> int:
+        return self.shape["x"] * self.shape["y"]
+
+    def distinct_devices(self) -> List[torch.device]:
+        """The devices of the mesh, each once, in mesh order."""
+        return list(dict.fromkeys(d for row in self.devices for d in row))
+
+    def edge_flags(self, y: int, x: int) -> Tuple[int, int, int, int]:
+        """[left, right, bottom, top]: 1 where tile (y, x)'s side lies on
+        the physical grid edge (the MPI_PROC_NULL analogue,
+        boundary.cpp:17-20)."""
+        px, py = self.shape["x"], self.shape["y"]
+        return (int(x == 0), int(x == px - 1), int(y == 0), int(y == py - 1))
+
+
+def make_mesh(n_x: int, n_y: int, devices: Sequence) -> Mesh:
+    """A (n_y, n_x) mesh over the first n_x*n_y devices, in list order."""
+    devs = [torch.device(d) for d in devices]
+    if len(devs) < n_x * n_y:
+        raise ValueError(f"need {n_x * n_y} devices, have {len(devs)}")
+    return Mesh([devs[y * n_x:(y + 1) * n_x] for y in range(n_y)])
+
+
+def divisible(mesh: Mesh, nx: int, ny: int) -> bool:
+    px = mesh.shape["x"]
+    py = mesh.shape["y"]
+    return nx % px == 0 and ny % py == 0
+
+
+def tile_shape(mesh: Mesh, nx: int, ny: int) -> Tuple[int, int]:
+    """(my, mx) of each tile of a divisible (ny, nx) grid."""
+    if not divisible(mesh, nx, ny):
+        raise ValueError(
+            f"grid {nx}x{ny} is not divisible by the"
+            f" {mesh.shape['x']}x{mesh.shape['y']} mesh"
+        )
+    return ny // mesh.shape["y"], nx // mesh.shape["x"]
+
+
+def shard_field(u: torch.Tensor, mesh: Mesh) -> Tiles:
+    """The global (ny, nx) field as the mesh's tile grid: tile (y, x) is a
+    contiguous copy of its block on ``mesh.devices[y][x]``."""
+    my, mx = tile_shape(mesh, u.shape[1], u.shape[0])
+    return [
+        [
+            u[y * my:(y + 1) * my, x * mx:(x + 1) * mx]
+            .to(mesh.devices[y][x]).contiguous()
+            for x in range(mesh.shape["x"])
+        ]
+        for y in range(mesh.shape["y"])
+    ]
+
+
+def gather_field(tiles: Tiles, mesh: Mesh) -> torch.Tensor:
+    """The inverse of :func:`shard_field`: the global field on the device
+    of tile (0, 0)."""
+    if len(tiles) != mesh.shape["y"] or any(len(r) != mesh.shape["x"] for r in tiles):
+        raise ValueError(
+            f"tile grid {len(tiles)}x{len(tiles[0]) if tiles else 0} does not"
+            f" match the mesh (y={mesh.shape['y']}, x={mesh.shape['x']})"
+        )
+    dev = tiles[0][0].device
+    rows = [torch.cat([t.to(dev) for t in row], dim=1) for row in tiles]
+    return torch.cat(rows, dim=0)

@@ -4,8 +4,10 @@
 
 accepts ``--config=<yaml>`` / ``--config <yaml>`` plus any ``--key=value`` or
 ``--key value`` overrides understood by the config system (the same surface
-as ``python -m climate_sim_tpu``).  The run goes to ``cuda:0``, or to the
-CPU when ``CLIMATE_SIM_PLATFORM=cpu``; asking for CUDA without a card fails.
+as ``python -m climate_sim_tpu``).  The run gets every visible CUDA device
+(one card: the single-device path, as the JAX CLI on one chip), or the CPU
+when ``CLIMATE_SIM_PLATFORM=cpu``; without a card and without that
+variable the run fails.
 Exit codes: 0 success, 2 bad configuration, 1 failed run.
 """
 
@@ -19,9 +21,10 @@ from ..config import extract_config_path, merged_config
 from .driver import run_simulation
 
 
-def cli_device() -> str:
-    """``cpu`` when ``CLIMATE_SIM_PLATFORM=cpu``, else ``cuda:0``."""
-    return "cpu" if os.environ.get("CLIMATE_SIM_PLATFORM") == "cpu" else "cuda:0"
+def cli_devices():
+    """``[cpu]`` when ``CLIMATE_SIM_PLATFORM=cpu``, else None: every visible
+    CUDA device (:func:`.driver.visible_cuda_devices`)."""
+    return ["cpu"] if os.environ.get("CLIMATE_SIM_PLATFORM") == "cpu" else None
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -48,7 +51,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 2
 
     try:
-        run_simulation(cfg, cli_device())
+        run_simulation(cfg, cli_devices())
     except Exception as e:
         print(f"error: {e}", file=sys.stderr)
         return 1

@@ -1,4 +1,4 @@
-"""Run driver for one device: the analogue of the reference's main()
+"""Run driver: the analogue of the reference's main()
 (reference: src/main.cpp:23-138), ported from ``climate_sim_tpu/runtime/driver.py``.
 
 Flow: config -> CFL clamp with warning -> banner -> IC -> IC min/max log ->
@@ -7,14 +7,20 @@ open snapshot file -> time loop with pre-update snapshots at
 (greppable by the benchmark harness, reference: run_benchmark.sh:34-39).
 
 The time loop is chunked: each span between snapshot points is dispatched
-as pieces of at most 256 steps, each piece a chain of K1 passes (or of
+as pieces of at most 256 steps, each piece a chain of kernel passes (or of
 torch-ops steps on the plain path).  On CUDA the launches are asynchronous,
 so a snapshot is taken by launching the next span first and then copying the
-held tensor to the host on a side stream; K1 writes a fresh output tensor,
-never its input, so the held snapshot stays valid while the span runs.
+held field to the host on a side stream; every kernel writes a fresh output
+tensor, never its input, so the held snapshot stays valid while the span
+runs.
 
-Runs on exactly one device, named by the caller.  A mesh or multi-process
-request is not ported yet and raises.
+Devices, as in the JAX package (driver.py:281-287): the caller names a list
+of torch devices (a device may repeat), ``max_devices`` keeps the first N,
+and a mesh of tiles exists iff ``mesh.enable`` and more than one device
+remains.  On a mesh the field is a grid of tiles (:mod:`..parallel`) and
+runs the slab path (K4), or the overlap path (K3) with ``halo_overlap:
+true``; a grid the mesh does not divide raises (its carrier path is not
+ported), as does a multi-process (``distributed``) request.
 """
 
 from __future__ import annotations
@@ -32,7 +38,25 @@ from ..config import SimConfig, bc_to_string
 from ..io.snapshots import SnapshotWriter
 from ..ops.init import DTYPES, apply_initial_condition
 from ..ops.stability import clamp_dt, combined_dt_limit
-from ..ops.step import build_single_device_advance
+from ..ops.step import (
+    KERNEL_VALUES,
+    build_single_device_advance,
+    make_interior_step,
+    select_kernel,
+)
+from ..parallel.halo import (
+    build_sharded_advance,
+    build_sharded_multistep_advance,
+    build_sharded_overlap_advance,
+)
+from ..parallel.mesh import (
+    Tiles,
+    choose_mesh_shape,
+    divisible,
+    gather_field,
+    make_mesh,
+    shard_field,
+)
 
 # Longest piece of a span dispatched as one chunk program.  Kept from the
 # JAX package (driver.py:521-529) so both packages run the same pass
@@ -42,15 +66,16 @@ MAX_DISPATCH = 256
 
 @dataclasses.dataclass
 class RunResult:
-    u: torch.Tensor         # final state (never snapshotted unless write_final)
+    u: torch.Tensor         # final global state (never snapshotted unless write_final)
     total_time: float
     avg_step_time: float
     steps: int
     snapshots_written: int
     output_path: Optional[str]
+    mesh_shape: Optional[tuple]  # (py, px) on a mesh, else None
     dt: float
     clamped: bool
-    timed_passes: int       # advance passes in the timed loop
+    timed_passes: int       # advance passes in the timed loop (per tile)
     warmup_passes: int      # untimed passes before it
 
 
@@ -84,17 +109,50 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _check_single_device(cfg: SimConfig) -> None:
-    if (cfg.mesh.x or 1) > 1 or (cfg.mesh.y or 1) > 1:
-        raise NotImplementedError(
-            f"mesh.x={cfg.mesh.x} mesh.y={cfg.mesh.y}: sharded runs are not"
-            " ported to the PyTorch package yet; it runs on one device"
+def visible_cuda_devices() -> List[torch.device]:
+    """Every visible CUDA device (the JAX package's ``jax.devices()``);
+    raises when there is none."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no device named and torch.cuda.is_available() is False"
         )
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def resolve_devices(devices) -> List[torch.device]:
+    """The run's device list: ``devices`` (a list, or one device), else
+    every visible CUDA device.  All of one type, each checked by
+    :func:`resolve_device`."""
+    if devices is None:
+        devs = visible_cuda_devices()
+    elif isinstance(devices, (str, torch.device)):
+        devs = [devices]
+    else:
+        devs = list(devices)
+    if not devs:
+        raise ValueError("the device list is empty")
+    devs = [resolve_device(d) for d in devs]
+    if len({d.type for d in devs}) > 1:
+        raise ValueError(f"devices {devs}: all cuda or all cpu")
+    return devs
+
+
+def _check_single_process(cfg: SimConfig) -> None:
     if cfg.distributed:
         raise NotImplementedError(
             f"distributed={cfg.distributed!r}: multi-process runs are not"
-            " ported to the PyTorch package yet; it runs on one device"
+            " ported to the PyTorch package yet; it runs in one process"
         )
+
+
+def resolve_auto_policies(cfg: SimConfig) -> SimConfig:
+    """Resolve ``halo_overlap="auto"`` as the JAX package does
+    (driver.py:172-213) for a mesh that crosses no DCN granule, which is
+    every mesh of one host's cards: overlap off.  ``steps_per_pass=0``
+    stays 0 (``pick_steps_per_pass`` applies the on-chip default 8)."""
+    if cfg.halo_overlap == "auto":
+        cfg = dataclasses.replace(cfg, halo_overlap=False)
+    return cfg
 
 
 def span_pieces(k: int) -> List[int]:
@@ -125,28 +183,49 @@ def run_pass_count(cfg: SimConfig, advance) -> int:
     )
 
 
-def _field_stats(a: torch.Tensor) -> torch.Tensor:
-    """[min, max, mean, l2] as ONE on-device vector (fetched when read)."""
-    af = a.to(torch.float32) if a.dtype == torch.bfloat16 else a
-    return torch.stack(
-        [af.min(), af.max(), af.mean(), torch.sqrt(torch.sum(af * af))]
-    )
+def _tiles(u) -> Tiles:
+    """A field as a tile grid: the mesh's own, or one tile."""
+    return u if isinstance(u, list) else [[u]]
+
+
+def _field_stats(u) -> torch.Tensor:
+    """[min, max, mean, l2] as ONE vector on the (first) tile's device,
+    fetched when read; a tiled field reduces per tile, then across tiles."""
+    tiles = [t for row in _tiles(u) for t in row]
+    dev = tiles[0].device
+    parts = []
+    for t in tiles:
+        af = t.to(torch.float32) if t.dtype == torch.bfloat16 else t
+        parts.append(torch.stack([af.min(), af.max(), af.sum(), torch.sum(af * af)]).to(dev))
+    p = torch.stack(parts)
+    n = sum(t.numel() for t in tiles)
+    return torch.stack([p[:, 0].min(), p[:, 1].max(), p[:, 2].sum() / n,
+                        torch.sqrt(p[:, 3].sum())])
 
 
 def _path_name(advance, device: torch.device) -> str:
-    if not advance.uses_kernel:
-        return "torch ops per step"
-    return "K1 CUDA kernel" if device.type == "cuda" else "K1 plain version"
+    kernel = advance.kernel
+    if kernel is None:
+        what = "torch ops per step"
+    elif device.type == "cuda":
+        what = f"{kernel} CUDA kernel"
+    else:
+        what = f"{kernel} plain version"
+    path = getattr(advance, "path", None)
+    return f"{path}, {what}" if path else what
 
 
-def prepare(cfg: SimConfig, device):
-    """Resolve the device, dtype, dt clamp, advance and IC.
+def prepare(cfg: SimConfig, devices=None):
+    """Resolve the devices, mesh, dtype, dt clamp, advance and IC.
 
-    Returns (u0, advance, dt, clamped).  ``advance(k)`` advances the global
-    field k steps on ``device``.
+    Returns (u0, advance, mesh, dt, clamped).  ``advance(k)`` advances the
+    field k steps: the global tensor on one device (``mesh`` None), or the
+    mesh's tile grid.
     """
-    _check_single_device(cfg)
-    device = resolve_device(device)
+    _check_single_process(cfg)
+    devs = resolve_devices(devices)
+    if cfg.max_devices:
+        devs = devs[: cfg.max_devices]
     dtype = DTYPES[cfg.precision]
 
     dt, limit, clamped = clamp_dt(cfg.dt, cfg.dx, cfg.dy, cfg.vx, cfg.vy, cfg.D)
@@ -156,10 +235,33 @@ def prepare(cfg: SimConfig, device):
             f"[warn] dt={cfg.dt:g} exceeds stability limit {limit:g}"
             f" -> clamping to dt={dt:g}"
         )
-    advance = build_single_device_advance(cfg, dt, device)
+    mesh = None
+    if cfg.mesh.enable and len(devs) > 1:
+        px, py = choose_mesh_shape(len(devs), cfg.nx, cfg.ny, cfg.mesh.x, cfg.mesh.y)
+        mesh = make_mesh(px, py, devs)
+    cfg = resolve_auto_policies(cfg)
+    if mesh is None:
+        advance = build_single_device_advance(cfg, dt, devs[0])
+    elif not divisible(mesh, cfg.nx, cfg.ny):
+        raise NotImplementedError(
+            f"grid {cfg.nx}x{cfg.ny} is not divisible by the"
+            f" {mesh.shape['x']}x{mesh.shape['y']} mesh: the carrier path"
+            " (K5) and the padded path for such grids are not ported to the"
+            " PyTorch package yet"
+        )
+    else:
+        advance = None
+        if select_kernel(cfg, devs[0]) in KERNEL_VALUES:
+            if cfg.halo_overlap:
+                advance = build_sharded_overlap_advance(cfg, mesh, dt)
+            if advance is None:
+                advance = build_sharded_multistep_advance(cfg, mesh, dt)
+        else:
+            advance = build_sharded_advance(cfg, mesh, dt, make_interior_step(cfg, dt))
     if cfg.precision == "bf16":
         # bf16 storage mode rounds once per pass of the advance actually
-        # chosen: once per k-step K1 pass, once per step on the plain path.
+        # chosen: once per k-step kernel pass, once per step on the plain
+        # and per-step paths.
         # The error vs f32 grows about linearly in that count (the JAX
         # package measured ~1e-3 relative per event), so warn past ~5%.
         events = run_pass_count(cfg, advance)
@@ -182,45 +284,63 @@ def prepare(cfg: SimConfig, device):
             f" stability bound {comb:g}; the run may diverge"
             " (the reference's clamp envelope does not cover this case)"
         )
-    u0 = apply_initial_condition(cfg, dtype, device).contiguous()
-    return u0, advance, dt, clamped
+    u0 = apply_initial_condition(cfg, dtype, devs[0]).contiguous()
+    if mesh is not None:
+        u0 = shard_field(u0, mesh)
+    return u0, advance, mesh, dt, clamped
 
 
 class _HostCopier:
-    """Copies a snapshot to the host while the next span runs: on CUDA the
-    copy waits on an event recorded before the span's launch and runs on a
-    side stream into pinned memory."""
+    """Copies a snapshot to the host while the next span runs: on CUDA each
+    tile's copy waits on an event recorded on its device before the span's
+    launch and runs on that device's side stream into pinned memory; the
+    global array is then assembled on the host."""
 
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.cuda = device.type == "cuda"
-        self.stream = torch.cuda.Stream(device) if self.cuda else None
+    def __init__(self, devices: List[torch.device]):
+        self.streams = {d: torch.cuda.Stream(d) for d in devices if d.type == "cuda"}
 
     def mark(self):
-        """An event after everything launched so far (None on the CPU)."""
-        if not self.cuda:
-            return None
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.device))
-        return ev
+        """Per device, an event after everything launched so far (empty on
+        the CPU)."""
+        events = {}
+        for d in self.streams:
+            events[d] = torch.cuda.Event()
+            events[d].record(torch.cuda.current_stream(d))
+        return events
 
-    def fetch(self, t: torch.Tensor, ready) -> np.ndarray:
-        if self.cuda:
-            with torch.cuda.stream(self.stream):
-                self.stream.wait_event(ready)
-                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                host.copy_(t, non_blocking=True)
-            self.stream.synchronize()
-            t = host
-        return t.to(torch.float64).numpy()
+    def fetch(self, u, ready) -> np.ndarray:
+        hosts = []
+        for row in _tiles(u):
+            hosts.append([])
+            for t in row:
+                if t.device.type == "cuda":
+                    stream = self.streams[t.device]
+                    with torch.cuda.stream(stream):
+                        stream.wait_event(ready[t.device])
+                        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                        host.copy_(t, non_blocking=True)
+                    t = host
+                hosts[-1].append(t)
+        for stream in self.streams.values():
+            stream.synchronize()
+        return np.block([[t.to(torch.float64).numpy() for t in row] for row in hosts])
+
+
+def _synchronize(devices: List[torch.device]) -> None:
+    for d in devices:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def run_simulation(
-    cfg: SimConfig, device="cuda:0", write_output: bool = True
+    cfg: SimConfig, devices=None, write_output: bool = True
 ) -> RunResult:
-    """Execute a full run (the reference main loop, main.cpp:93-133)."""
-    u, advance, dt, clamped = prepare(cfg, device)
-    device = u.device
+    """Execute a full run (the reference main loop, main.cpp:93-133) on
+    ``devices`` (a list of torch devices, or one; default every visible
+    CUDA device)."""
+    u, advance, mesh, dt, clamped = prepare(cfg, devices)
+    used = mesh.distinct_devices() if mesh is not None else [u.device]
+    device = used[0]
     # Record the dt actually used: the reference clamps cfg.dt in place
     # before writing metadata (main.cpp:42-49).
     cfg = dataclasses.replace(cfg, dt=dt)
@@ -232,22 +352,26 @@ def run_simulation(
         f"  bc: left={bc_to_string(cfg.bc.left)} right={bc_to_string(cfg.bc.right)}"
         f" bottom={bc_to_string(cfg.bc.bottom)} top={bc_to_string(cfg.bc.top)}"
     )
-    dev_name = f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""
-    _log(f"  device: {device}{dev_name}  path: {_path_name(advance, device)}")
+    if mesh is not None:
+        _log(f"  mesh: x={mesh.shape['x']} y={mesh.shape['y']} ({mesh.size} devices)")
+    names = ", ".join(
+        f"{d} ({torch.cuda.get_device_name(d)})" if d.type == "cuda" else str(d)
+        for d in used
+    )
+    _log(f"  device: {names}  path: {_path_name(advance, device)}")
 
     # IC sanity log (a 4-scalar fetch); also surfaces a bad IC before the
     # snapshot file is created.
     ic_stats = _field_stats(u).to("cpu", torch.float64).numpy()
     _log(f"IC min/max: {ic_stats[0]:g} / {ic_stats[1]:g}")
 
-    copier = _HostCopier(device)
+    copier = _HostCopier(used)
 
     # Warm-up outside the timed region: one 1-step pass builds and loads
     # the kernel library (first use) and brings the device up to speed.
     warmup_passes = advance.pass_count(1)
     advance(1)(u)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    _synchronize(used)
     timed_passes = run_pass_count(cfg, advance)
 
     def dispatch_span(u, k):
@@ -287,11 +411,12 @@ def run_simulation(
             if cfg.diagnostics_every and (n // cfg.out_every) % max(1, cfg.diagnostics_every) == 0:
                 # Reductions launch now and are fetched after the timed loop.
                 diag_pending.append((n + k, _field_stats(u)))
-            if cfg.debug_nans and bool(torch.isnan(u).any()):
+            if cfg.debug_nans and any(
+                bool(torch.isnan(t).any()) for row in _tiles(u) for t in row
+            ):
                 raise FloatingPointError(f"NaN in the field after step {n + k}")
             n += k
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        _synchronize(used)
         total = time.perf_counter() - t0
         if profiler is not None:
             profiler.stop()
@@ -312,17 +437,20 @@ def run_simulation(
     avg_step = total / max(1, cfg.steps)
     _log(f"passes: timed={timed_passes} warmup={warmup_passes}")
     _log(f"timing: total_max={total:g} s, worst_avg_step={avg_step:g} s")
+    # Per chip = per DISTINCT device: a 2x2 mesh on one card is one chip,
+    # not four.
     pts = cfg.nx * cfg.ny * cfg.steps / max(total, 1e-12)
     _log(f"throughput: {pts / 1e6:.1f} Mpoint/s total, "
-         f"{pts / 1e6:.1f} Mpoint/s/chip")
+         f"{pts / 1e6 / len(used):.1f} Mpoint/s/chip")
 
     return RunResult(
-        u=u,
+        u=gather_field(u, mesh) if mesh is not None else u,
         total_time=total,
         avg_step_time=avg_step,
         steps=cfg.steps,
         snapshots_written=snapshots,
         output_path=out_path,
+        mesh_shape=(mesh.shape["y"], mesh.shape["x"]) if mesh is not None else None,
         dt=dt,
         clamped=clamped,
         timed_passes=timed_passes,

@@ -184,11 +184,42 @@ def test_cuda_request_without_a_card_raises(tmp_path, monkeypatch, capsys):
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("override", ["--mesh.x=2", "--mesh.y=4", "--distributed=auto"])
+@pytest.mark.parametrize("override", ["--distributed=auto"])
 def test_mesh_or_distributed_request_raises(override):
     cfg = tconfig.merged_config(None, ["--nx=16", "--ny=16", override])
     with pytest.raises(NotImplementedError, match="not\\s+ported"):
         tdriver.run_simulation(cfg, "cpu", write_output=False)
+
+
+@pytest.mark.parametrize("override", ["--mesh.x=2", "--mesh.y=4"])
+def test_mesh_request_on_one_device_runs_single_device_path(override, capsys):
+    """JAX builds a mesh only when more than one device is visible
+    (driver.py:281-287): a mesh request on one device runs the
+    single-device path, with no mesh: line, in both packages."""
+    args = ["--nx=16", "--ny=16", "--steps=6", "--out_every=3",
+            "--precision=f64", override]
+    jres = jrun(jconfig.merged_config(None, args), devices=jax.devices()[:1],
+                write_output=False)
+    jout = capsys.readouterr().out
+    tres = tdriver.run_simulation(tconfig.merged_config(None, args), "cpu",
+                                  write_output=False)
+    tout = capsys.readouterr().out
+    assert jres.mesh_shape is None and tres.mesh_shape is None
+    assert "mesh:" not in jout and "mesh:" not in tout
+    np.testing.assert_allclose(tres.u.numpy(), np.asarray(jres.u), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("max_devices, want", [(1, None), (2, (1, 2)), (0, (2, 2))])
+def test_max_devices_truncates_the_device_list(max_devices, want):
+    """``max_devices`` keeps the first N devices, as in JAX
+    (tests/test_driver_paths.py:136): one device left means no mesh."""
+    args = ["--nx=16", "--ny=16", "--steps=1", "--out_every=1",
+            f"--max_devices={max_devices}"]
+    jres = jrun(jconfig.merged_config(None, args), devices=jax.devices()[:4],
+                write_output=False)
+    tres = tdriver.run_simulation(tconfig.merged_config(None, args), ["cpu"] * 4,
+                                  write_output=False)
+    assert jres.mesh_shape == tres.mesh_shape == want
 
 
 def test_diagnostics_profile_and_write_final(tmp_path, capsys):
@@ -216,7 +247,7 @@ def test_dt_warnings_match_jax(args, capsys):
     base = ["--nx=32", "--ny=32", "--kernel=jnp"]
     jprepare(jconfig.merged_config(None, base + args), devices=jax.devices()[:1])
     jerr = capsys.readouterr().err
-    _, _, dt, clamped = tdriver.prepare(tconfig.merged_config(None, base + args), "cpu")
+    _, _, _, dt, clamped = tdriver.prepare(tconfig.merged_config(None, base + args), "cpu")
     terr = capsys.readouterr().err
     warn = [ln for ln in jerr.splitlines() if ln.startswith("[warn] dt=")]
     assert warn and [ln for ln in terr.splitlines() if ln.startswith("[warn]")] == warn
@@ -229,7 +260,7 @@ def test_bf16_advisory_counts_the_chosen_path(capsys):
     base = ["--nx=256", "--ny=256", "--steps=100", "--out_every=100", "--precision=bf16"]
     tdriver.prepare(tconfig.merged_config(None, base + ["--kernel=jnp"]), "cpu")
     assert "~100 rounding events" in capsys.readouterr().err
-    _, adv, _, _ = tdriver.prepare(tconfig.merged_config(None, base + ["--kernel=pallas"]), "cpu")
+    _, adv, _, _, _ = tdriver.prepare(tconfig.merged_config(None, base + ["--kernel=pallas"]), "cpu")
     assert adv.pass_count(100) == 13
     assert "rounding events" not in capsys.readouterr().err
 
@@ -332,6 +363,7 @@ def test_port_imports_no_jax():
         "import climate_sim_tpu_torch, climate_sim_tpu_torch.runtime.driver\n"
         "import climate_sim_tpu_torch.ops.cuda_stencil, climate_sim_tpu_torch.convert\n"
         "import climate_sim_tpu_torch.runtime.cli, climate_sim_tpu_torch.ops._build\n"
+        "import climate_sim_tpu_torch.parallel, climate_sim_tpu_torch.ops.cuda_sharded\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m.startswith('climate_sim_tpu.') or m == 'climate_sim_tpu'\n"
         "               for m in sys.modules), 'the JAX package was imported'\n"
@@ -343,7 +375,9 @@ def test_port_imports_no_jax():
 
 def test_build_finds_sources_without_nvcc(tmp_path, monkeypatch):
     srcs = _build.kernel_sources()
-    assert [os.path.basename(s) for s in srcs] == ["multistep_stencil.cu"]
+    assert [os.path.basename(s) for s in srcs] == ["multistep_stencil.cu",
+                                                   "sharded_stencil.cu"]
+    assert [os.path.basename(s) for s in _build.kernel_headers()] == ["stencil_core.cuh"]
     assert os.path.dirname(srcs[0]) == os.path.join(REPO, "climate_sim_tpu_torch", "csrc")
     h = _build.sources_hash(srcs)
     assert len(h) == 16 and h == _build.sources_hash(srcs)
