@@ -5,7 +5,7 @@
 Phases, each of which raises on failure (nothing is caught):
 
 1. the device: its name, and its name and power limit from nvidia-smi;
-2. the build of K1-K4 (csrc/*.cu) with nvcc, or a cache hit;
+2. the build of K1-K5 (csrc/*.cu) with nvcc, or a cache hit;
 3. K1 against its plain PyTorch version on the card, over shapes, BC
    classes, steps per pass and dtypes;
 4. the main path through the port's own CLI: configs/bench_4096.yaml at
@@ -16,17 +16,31 @@ Phases, each of which raises on failure (nothing is caught):
 5. the time of one K1 pass and of its plain version at 4096², f32;
 6. K2, K3 and K4 against their plain versions on the card, over tile
    shapes (a 2048² tile included), BC classes, dtypes, steps per pass and
-   the edge flags of every tile of 1x1, 2x2, 1x4 and 4x1 meshes;
+   the edge flags of every tile of 1x1, 2x2, 1x4 and 4x1 meshes, and K2 on
+   the padded remainder tiles of phase 8; then K5 over the same shapes
+   with several true extents (the full tile and l == k among them) and the
+   flags of 2x2, 1x4 and 4x1 carrier meshes, and on the carrier tile of
+   every carrier run of phase 7 at that run's staging depth, true extent,
+   weights and pass sizes;
 7. the sharded path through ``run_simulation(cfg, [cuda:0] * n)``:
    bench_4096 on a 2x2 mesh with the slab path (K4) and with
-   ``halo_overlap: true`` (K3), dev.yaml at 512² on 1x4 and 4x1, each
-   checked for the timing and mesh lines, launch counts equal to the pass
-   schedule times the tiles, snapshots that read back, and a final field
-   that agrees with the single-device K1 run on the same card;
+   ``halo_overlap: true`` (K3), dev.yaml at 512² on 1x4 and 4x1, and the
+   carrier path (K5) on grids the mesh does not divide: bench_4096's BCs
+   at 4001² on 2x2 (y torus staging), dev.yaml at 509x511 on 1x4 and 4x1
+   (one-sided y staging), all-periodic at 1001x999 on 2x2; each checked
+   for the timing and mesh lines, launch counts equal to the pass schedule
+   times the tiles with every other kernel at 0, snapshots that read back,
+   and a final field that agrees with the single-device K1 run on the
+   same card;
 8. the per-step sharded path (K2) on a 2x2 mesh at 4096², 100 steps,
-   held against the slab path and against K1;
-9. K2-K4 per pass on a 2048² tile beside their plain versions, and the
-   rates of the 2x2 slab and overlap paths on one card beside K1's.
+   held against the slab path and against K1; the per-step path on
+   remainder tiles at 4001² on 2x2 (torch ops, and K2), 1000 steps,
+   against K1;
+9. K2-K5 per pass beside their plain versions (K5 on a 2009x2001 carrier
+   tile, in turns with K4 on 2048²; K2 also beside ``conv2d`` with its five
+   weights as a 3x3 cross), the rates of the 2x2 slab and overlap paths at
+   4096² and of the carrier path at 4001² on one card beside K1's, and a
+   profiled 1000-step carrier run through the driver.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -69,6 +83,9 @@ STEPS_PER_PASS = [1, 3, 8]
 # f32 and f64 agree to round-off; bf16 rounds the two f32 results once
 # each, so they agree to one bf16 ulp of the value (<= |value| * 2^-7).
 ATOL = {"float32": 1e-5, "float64": 1e-12}
+# K5 against its plain version, f32: the bound that K5 is held to (2.4e-7
+# was the largest error over its unit-shape cases on the card).
+K5_ATOL = {**ATOL, "float32": 1e-6}
 # Main path, 1000 steps in f32: K1 collapses the update to five f32 weights
 # whose sum is off 1 by up to ~1e-7, a bias the per-step torch ops do not
 # share; it compounds to a few 1e-5 over 1000 steps (2.9e-5 measured at
@@ -81,8 +98,31 @@ MAIN_PATH_ATOL = 1e-4
 SHARDED_ATOL = MAIN_PATH_ATOL
 TILE_SHAPES = [(128, 64), (120, 96), (2048, 2048)]  # (mx, my)
 MESH_SHAPES = [(1, 1), (2, 2), (1, 4), (4, 1)]  # (px, py)
-KERNEL_NAMES = ("K1", "K2", "K3", "K4")
+KERNEL_NAMES = ("K1", "K2", "K3", "K4", "K5")
 TIMING_TILE = 2048  # the tile of a 2x2 mesh at 4096²
+BENCH_GRID = 4096
+CARRIER_GRID = 4001  # bench_4096's BCs at 4001² on 2x2: ...
+CARRIER_TILE = (2009, 2001)  # ... 2009x2001 carrier tiles (my, mx) ...
+CARRIER_EDGE = (1992, 2000)  # ... whose corner tile holds the true edge at (ly, lx)
+BENCH_STEPS = ["--steps=1000", "--out_every=500"]
+PADDED_STEPS = 1000  # the remainder-tile per-step runs of phase 8
+# The carrier runs of phase 7: (label, config, overrides, (px, py)).
+CARRIER_RUNS = (
+    (f"bench_{CARRIER_GRID}_2x2_carrier", BENCH_CFG,
+     [*BENCH_STEPS, f"--nx={CARRIER_GRID}", f"--ny={CARRIER_GRID}"], (2, 2)),
+    ("dev_509x511_1x4_carrier", DEV_CFG, ["--nx=509", "--ny=511"], (1, 4)),
+    ("dev_509x511_4x1_carrier", DEV_CFG, ["--nx=509", "--ny=511"], (4, 1)),
+    ("periodic_1001x999_2x2_carrier", BENCH_CFG,
+     [*BENCH_STEPS, "--nx=1001", "--ny=999", "--bc=periodic"], (2, 2)),
+)
+# Carrier tiles of at most this many cells are checked under every BC
+# class besides their run's own.
+SMALL_TILE = 1 << 19
+# The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): device
+# memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+FLOPS_PER_CELL_STEP = 9  # five products, four sums
 
 
 def fail(msg: str) -> None:
@@ -211,7 +251,7 @@ def phase_main_path(torch, device, label, cfg_path, extra, tmp):
     launches = counts["K1"]
     if rc != 0:
         fail(f"{label}: CLI exit code {rc}")
-    if any(counts[n] for n in ("K2", "K3", "K4")):
+    if any(counts[n] for n in KERNEL_NAMES if n != "K1"):
         fail(f"{label}: the single-device path launched {counts}")
     if not re.search(r"^timing: total_max=\S+ s, worst_avg_step=\S+ s$", out, re.M):
         fail(f"{label}: no timing line")
@@ -263,7 +303,7 @@ def phase_timing(torch, device):
     from CUDA events after warm-up, measured in turns: plain, K1, K1, plain."""
     from climate_sim_tpu_torch.ops import cuda_stencil as cs
 
-    nx = ny = 4096
+    nx = ny = BENCH_GRID
     cfg = make_cfg(nx, ny, "bench")
     u = edge_parked(torch, ny, nx, seed=7, device=device).to(torch.float32)
     k = 8
@@ -293,9 +333,11 @@ def phase_timing(torch, device):
     pts = nx * ny * k
     print(f"[timing] {nx}x{ny} f32, k={k} steps per pass, bench BCs:"
           f" K1 {k1:.4f} / {k2:.4f} ms per pass, plain {p1:.4f} / {p2:.4f} ms")
+    b = bound(2 * nbytes(u), FLOPS_PER_CELL_STEP * pts)
     print(f"[timing] K1 {pts / (k_ms * 1e6):.1f} Gpoint/s,"
-          f" plain {pts / (p_ms * 1e6):.1f} Gpoint/s")
-    return k_ms, p_ms
+          f" plain {pts / (p_ms * 1e6):.1f} Gpoint/s; bound {b[0]:.4f} ms ({b[1]}),"
+          f" {b[0] / k_ms:.1%} of it reached")
+    return k_ms, p_ms, b
 
 
 def counters():
@@ -304,7 +346,8 @@ def counters():
     from climate_sim_tpu_torch.ops import cuda_stencil as cs
 
     return {"K1": cs.multistep_kernel_step, "K2": sh.prepadded_kernel_step,
-            "K3": sh.tile_region_multistep, "K4": sh.sharded_tile_slab_multistep}
+            "K3": sh.tile_region_multistep, "K4": sh.sharded_tile_slab_multistep,
+            "K5": sh.carrier_tile_slab_multistep}
 
 
 def reset_counts():
@@ -338,9 +381,9 @@ def slabs(torch, w, kh):
     return tile, xh, yh
 
 
-def compare(torch, label, got, want, dtype):
+def compare(torch, label, got, want, dtype, atol=ATOL):
     """Max abs error of a kernel result against its plain version; fails
-    past the dtype's tolerance."""
+    past the dtype's tolerance in ``atol`` (bf16: one ulp of the value)."""
     if got.dtype != want.dtype or got.shape != want.shape:
         fail(f"{label}: {got.dtype} {tuple(got.shape)} vs plain"
              f" {want.dtype} {tuple(want.shape)}")
@@ -352,7 +395,7 @@ def compare(torch, label, got, want, dtype):
     if dtype == torch.bfloat16:
         ok = bool((err <= w64.abs() * 2.0**-7 + 1e-30).all())
     else:
-        ok = float(err.max()) <= ATOL[name]
+        ok = float(err.max()) <= atol[name]
     if not ok:
         fail(f"{label}: max abs err {float(err.max()):.3g}")
     return name, float(err.max())
@@ -401,6 +444,26 @@ def phase_tile_kernels_vs_plain(torch, device):
                 name, e = compare(torch, f"K2 {mx}x{my} {bc_class} {dtype}", got, want, dtype)
                 worst["K2"][name] = max(worst["K2"][name], e)
                 cases["K2"] += 1
+    # K2 on the padded remainder tiles of the per-step path at 4001² on
+    # 2x2 (phase 8), under that run's weights.
+    from climate_sim_tpu_torch.parallel.mesh import split_sizes
+
+    rem_cfg, rem_dt = bench_config(CARRIER_GRID)
+    rem_shapes = sorted({(h + 2, w + 2) for h in split_sizes(CARRIER_GRID, 2)
+                         for w in split_sizes(CARRIER_GRID, 2)})
+    rem_cases = 0
+    for h, w in rem_shapes:
+        for dtype in (torch.float32, torch.float64, torch.bfloat16):
+            up = edge_parked(torch, h, w, seed=h + w, device=device).to(dtype)
+            got = sh.prepadded_kernel_step(up, rem_cfg, rem_dt)
+            torch.cuda.synchronize(device)
+            want = sh.prepadded_step_plain(up, rem_cfg, rem_dt)
+            name, e = compare(torch, f"K2 remainder tile {h}x{w} {dtype}", got, want, dtype)
+            worst["K2"][name] = max(worst["K2"][name], e)
+            rem_cases += 1
+    cases["K2"] += rem_cases
+    print(f"[tile-kernels-vs-plain] K2 on the padded remainder tiles of {CARRIER_GRID}² on"
+          f" 2x2 {rem_shapes} x 3 dtypes: {rem_cases} cases ok")
     for n in ("K2", "K3", "K4"):
         errs = ", ".join(f"{d} {e:.3g}" for d, e in worst[n].items())
         print(f"[tile-kernels-vs-plain] {n}: {cases[n]} cases ok; max abs err {errs}")
@@ -410,16 +473,119 @@ def phase_tile_kernels_vs_plain(torch, device):
     return cases, worst
 
 
+def carrier_flag_sets():
+    """The edge flags of every tile of 2x2, 1x4 and 4x1 carrier meshes (the
+    edge tile last), and of a trailing all-pad tile."""
+    out = []
+    for flags in mesh_flag_sets():
+        if flags not in out and flags != (1, 1, 1, 1):
+            out.append(flags)
+    return out + [(0, 0, 0, 0)]
+
+
+def carrier_run_geometry(cfg_path, extra, mesh_xy):
+    """What a carrier run of phase 7 gives K5: its config and clamped dt,
+    the carrier tile (my, mx), the staging depth KH, every tile's flags6,
+    and the step counts of its passes (a remainder pass runs fewer steps on
+    the KH-deep slabs)."""
+    from climate_sim_tpu_torch.config import merged_config
+    from climate_sim_tpu_torch.ops.stability import clamp_dt
+    from climate_sim_tpu_torch.parallel.halo import build_carrier_slab_advance
+    from climate_sim_tpu_torch.parallel.mesh import make_mesh
+    from climate_sim_tpu_torch.runtime import driver
+
+    px, py = mesh_xy
+    cfg = merged_config(cfg_path, [*extra, f"--mesh.x={px}", f"--mesh.y={py}",
+                                   "--kernel=pallas"])
+    dt = clamp_dt(cfg.dt, cfg.dx, cfg.dy, cfg.vx, cfg.vy, cfg.D)[0]
+    adv = build_carrier_slab_advance(cfg, make_mesh(px, py, ["cpu"] * (px * py)), dt)
+    kh = adv.steps_per_pass
+    ks = {min(kh, piece - j) for span in driver.span_lengths(cfg)
+          for piece in driver.span_pieces(span) for j in range(0, piece, kh)}
+    flags6 = sorted({adv.flags6(y, x) for y in range(py) for x in range(px)})
+    tile = (adv.carrier_shape[0] // py, adv.carrier_shape[1] // px)
+    return cfg, dt, tile, kh, flags6, ks
+
+
+def phase_carrier_kernel_vs_plain(torch, device):
+    """K5 against its plain version on random carrier tiles and slabs made
+    on the card (the whole tile, pad included), f32 within K5_ATOL: first
+    on the unit tile shapes over the true extents (my, mx), (k, k) and one
+    in between and every carrier tile's flags; then on the carrier tile of
+    each carrier run of phase 7, at that run's staging depth, true extent
+    and weights, under every carrier tile's flags (the run's own tiles'
+    among them), k in {1, 3, KH} and the run's remainder pass, and, on the
+    smaller tiles, every BC class too."""
+    from climate_sim_tpu_torch.ops import cuda_sharded as sh
+
+    flag_sets = carrier_flag_sets()
+    worst = {"float32": 0.0, "float64": 0.0, "bfloat16": 0.0}
+    cases = {"unit": 0, "main": 0}
+
+    def check(where, tile, xh, yh, f6, cfg, dt, k, kh, label):
+        got = sh.carrier_tile_slab_multistep(tile, xh, yh, f6, cfg, dt, k, khalo=kh)
+        torch.cuda.synchronize(device)
+        want = sh.carrier_pass_plain(tile, xh, yh, f6, cfg, dt, k, kh)
+        name, e = compare(torch, f"K5 {label} k={k} KH={kh} flags6={f6}", got, want,
+                          tile.dtype, K5_ATOL)
+        worst[name] = max(worst[name], e)
+        cases[where] += 1
+
+    for mx, my in TILE_SHAPES:
+        for bc_class in BC_CLASSES:
+            cfg = make_cfg(mx, my, bc_class)
+            for dtype in (torch.float32, torch.float64, torch.bfloat16):
+                for k in STEPS_PER_PASS:
+                    w = edge_parked(torch, my + 2 * k, mx + 2 * k, seed=mx + 3 * k,
+                                    device=device).to(dtype)
+                    tile, xh, yh = slabs(torch, w, k)
+                    for ly, lx in ((my, mx), (k, k), (my - my // 3, mx - mx // 5)):
+                        for flags in flag_sets:
+                            check("unit", tile, xh, yh, (*flags, ly, lx), cfg, cfg.dt, k, k,
+                                  f"{mx}x{my} {bc_class} {dtype}")
+    print(f"[tile-kernels-vs-plain] K5: {cases['unit']} unit cases ok ({len(TILE_SHAPES)} tile"
+          f" shapes x {len(BC_CLASSES)} BC classes x 3 dtypes x k in {STEPS_PER_PASS} x 3 true"
+          f" extents x {len(flag_sets)} carrier-tile flag sets)")
+
+    for label, cfg_path, extra, mesh_xy in CARRIER_RUNS:
+        run_cfg, dt, (my, mx), kh, run_f6, ks = carrier_run_geometry(cfg_path, extra, mesh_xy)
+        ly, lx = run_f6[0][4:]
+        f6s = sorted(set(run_f6) | {(*f, ly, lx) for f in flag_sets})
+        cfgs = [("run's own", run_cfg, dt)]
+        if my * mx <= SMALL_TILE:
+            cfgs += [(c, make_cfg(mx, my, c), 0.1) for c in BC_CLASSES]
+        k_set = sorted(k for k in {1, 3, kh} | ks if k <= kh)
+        before = cases["main"]
+        for dtype in (torch.float32, torch.float64, torch.bfloat16):
+            w = edge_parked(torch, my + 2 * kh, mx + 2 * kh, seed=my + mx,
+                            device=device).to(dtype)
+            tile, xh, yh = slabs(torch, w, kh)
+            for bc_name, cfg, cdt in cfgs:
+                for k in k_set:
+                    for f6 in f6s:
+                        check("main", tile, xh, yh, f6, cfg, cdt, k, kh,
+                              f"{label} {my}x{mx} {bc_name} BCs {dtype}")
+        print(f"[tile-kernels-vs-plain] K5 on {label}'s {my}x{mx} carrier tile, KH={kh}, true"
+              f" extent ({ly}, {lx}): {cases['main'] - before} cases ok ({len(cfgs)} BC"
+              f" set(s) x 3 dtypes x k in {k_set} x {len(f6s)} flag sets)")
+    errs = ", ".join(f"{d} {e:.3g}" for d, e in worst.items())
+    total = cases["unit"] + cases["main"]
+    print(f"[tile-kernels-vs-plain] K5: {total} cases ok ({cases['unit']} unit,"
+          f" {cases['main']} at the carrier runs' tiles); max abs err {errs}"
+          f" (f32 tol {K5_ATOL['float32']})")
+    return total, worst
+
+
 def expected_tile_passes(cfg, px, py):
     """Passes per tile of a sharded run: spans between snapshots, pieces of
-    at most 256 steps, passes of the tile's k (fixed once from the tile and
-    out_every); plus the 1-step warm-up pass."""
+    at most 256 steps, passes of the tile's k (fixed once from the
+    ceil(n/p) tile and out_every)."""
     import dataclasses
 
     from climate_sim_tpu_torch.ops.cuda_stencil import pick_steps_per_pass
     from climate_sim_tpu_torch.runtime import driver
 
-    tile = dataclasses.replace(cfg, nx=cfg.nx // px, ny=cfg.ny // py)
+    tile = dataclasses.replace(cfg, nx=-(-cfg.nx // px), ny=-(-cfg.ny // py))
     k = pick_steps_per_pass(tile, cfg.out_every or 8)
     return sum(-(-piece // k) for span in driver.span_lengths(cfg)
                for piece in driver.span_pieces(span))
@@ -452,9 +618,11 @@ def phase_sharded_run(torch, device, label, cfg_path, extra, mesh_xy, kernel, tm
         fail(f"{label}: no timing line")
     if f"  mesh: x={px} y={py} ({n} devices)" not in out.splitlines():
         fail(f"{label}: no mesh line for x={px} y={py}")
-    path = "overlap, K3" if kernel == "K3" else "slab, K4"
+    path = {"K3": "overlap, K3", "K4": "slab, K4", "K5": "carrier, K5"}[kernel]
     if f"path: {path} CUDA kernel" not in out:
         fail(f"{label}: the run did not take the {path} CUDA path")
+    if (kernel == "K5") != ("running the CARRIER path" in out):
+        fail(f"{label}: the [info] CARRIER line is {'missing' if kernel == 'K5' else 'wrong'}")
     if res.mesh_shape != (py, px):
         fail(f"{label}: mesh_shape {res.mesh_shape}")
     m = re.search(r"^passes: timed=(\d+) warmup=(\d+)$", out, re.M)
@@ -480,27 +648,40 @@ def phase_sharded_run(torch, device, label, cfg_path, extra, mesh_xy, kernel, tm
         fail(f"{label}: the first snapshot is not the IC")
     if not np.array_equal(frames[-1], res.u.to(torch.float64).cpu().numpy()):
         fail(f"{label}: the final snapshot is not the returned field")
+    # The single-device K1 run of the same config, snapshots included: a
+    # snapshot copied while the next span ran must hold its own step.
+    ref_cfg = merged_config(cfg_path, [*args, f"--output.dir={os.path.join(tmp, label + '_k1')}"])
     with contextlib.redirect_stdout(io.StringIO()):
-        ref = driver.run_simulation(cfg, [device], write_output=False).u
+        ref = driver.run_simulation(ref_cfg, [device]).u
+    with NetCDFFile(ref_cfg.resolved_output_path()) as ds:
+        ref_frames = ds.variables["u"][:, :, :]
     err = float((res.u - ref).abs().max())
-    if not err <= SHARDED_ATOL:
-        fail(f"{label}: final field vs single-device K1 run: {err:.3g} > {SHARDED_ATOL}")
-    print(f"[sharded:{label}] {expect_snaps} snapshots + final read back;"
-          f" final field vs single-device K1 run: max abs err {err:.3g}"
-          f" (tol {SHARDED_ATOL})")
+    snap_err = float(np.abs(frames - ref_frames).max())
+    if not max(err, snap_err) <= SHARDED_ATOL:
+        fail(f"{label}: vs the single-device K1 run: final {err:.3g}, snapshots"
+             f" {snap_err:.3g} > {SHARDED_ATOL}")
+    print(f"[sharded:{label}] {expect_snaps} snapshots + final read back; vs the"
+          f" single-device K1 run: final field max abs err {err:.3g}, every snapshot"
+          f" {snap_err:.3g} (tol {SHARDED_ATOL})")
     return counts[kernel], err
 
 
-def bench_setup(torch, device, px=2, py=2):
-    """bench_4096's config at 4096² f32 with the kernel named, its clamped
-    dt, its IC on the card and a px x py mesh of the card."""
+def bench_config(n):
+    """bench_4096's config at n² with the kernel named, and its clamped dt."""
     from climate_sim_tpu_torch.config import merged_config
-    from climate_sim_tpu_torch.ops.init import apply_initial_condition
     from climate_sim_tpu_torch.ops.stability import clamp_dt
+
+    cfg = merged_config(BENCH_CFG, ["--kernel=pallas", f"--nx={n}", f"--ny={n}"])
+    return cfg, clamp_dt(cfg.dt, cfg.dx, cfg.dy, cfg.vx, cfg.vy, cfg.D)[0]
+
+
+def bench_setup(torch, device, px=2, py=2, n=None):
+    """bench_4096's config at n² (default 4096²) f32 with the kernel named,
+    its clamped dt, its IC on the card and a px x py mesh of the card."""
+    from climate_sim_tpu_torch.ops.init import apply_initial_condition
     from climate_sim_tpu_torch.parallel.mesh import make_mesh
 
-    cfg = merged_config(BENCH_CFG, ["--kernel=pallas"])
-    dt = clamp_dt(cfg.dt, cfg.dx, cfg.dy, cfg.vx, cfg.vy, cfg.D)[0]
+    cfg, dt = bench_config(n or BENCH_GRID)
     u0 = apply_initial_condition(cfg, torch.float32, device).contiguous()
     return cfg, dt, u0, make_mesh(px, py, [device] * (px * py))
 
@@ -520,7 +701,8 @@ def phase_per_step(torch, device):
     out = adv(100)(tiles)
     torch.cuda.synchronize(device)
     counts = read_counts()
-    want = {"K1": 0, "K2": 100 * 4, "K3": 0, "K4": 0}
+    want = {name: 0 for name in KERNEL_NAMES}
+    want["K2"] = 100 * 4
     if counts != want:
         fail(f"per-step: launches {counts} != {want}")
     per_step = gather_field(out, mesh)
@@ -534,6 +716,44 @@ def phase_per_step(torch, device):
           f" = 100 x 4 tiles; slab path vs per-step max abs err {errs['slab']:.3g},"
           f" per-step vs K1 {errs['K1']:.3g} (tol {SHARDED_ATOL})")
     return counts["K2"], errs
+
+
+def phase_padded_per_step(torch, device):
+    """build_padded_advance on remainder tiles (split 2000 | 2001) at 4001²
+    on a 2x2 mesh, PADDED_STEPS steps (a run's length, so K2's launches
+    per run are counted, not computed), with torch ops (kernel=jnp) and
+    with K2; each held against K1 at 4001²."""
+    import dataclasses
+
+    from climate_sim_tpu_torch.ops.cuda_stencil import build_multistep_advance
+    from climate_sim_tpu_torch.parallel import halo
+    from climate_sim_tpu_torch.parallel.mesh import gather_field, shard_field
+
+    n = CARRIER_GRID
+    cfg, dt, u0, mesh = bench_setup(torch, device, n=n)
+    steps = PADDED_STEPS
+    k1 = build_multistep_advance(cfg, dt)(steps)(u0)
+    tiles = shard_field(u0, mesh)
+    launches = 0
+    for kernel, want_k2 in (("jnp", 0), ("pallas", steps * 4)):
+        adv = halo.build_padded_advance(dataclasses.replace(cfg, kernel=kernel), mesh, dt)
+        reset_counts()
+        out = gather_field(adv(steps)(tiles), mesh)
+        torch.cuda.synchronize(device)
+        counts = read_counts()
+        want = {name: 0 for name in KERNEL_NAMES}
+        want["K2"] = want_k2
+        if counts != want:
+            fail(f"padded per-step {kernel}: launches {counts} != {want}")
+        err = float((out - k1).abs().max())
+        if out.shape != (n, n) or not torch.isfinite(out).all() or err > SHARDED_ATOL:
+            fail(f"padded per-step {kernel}: {tuple(out.shape)}, max abs err vs K1"
+                 f" {err:.3g} > {SHARDED_ATOL}")
+        launches += counts["K2"]
+        print(f"[padded-per-step] {n}² on 2x2 remainder tiles"
+              f" {[tuple(t.shape) for row in tiles for t in row]}, {steps} steps, kernel={kernel}:"
+              f" K2 launches {counts['K2']}; vs K1 max abs err {err:.3g} (tol {SHARDED_ATOL})")
+    return launches
 
 
 def events_ms(torch, device, fn, reps):
@@ -550,13 +770,40 @@ def events_ms(torch, device, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def bound(nbytes, flops):
+    """(least ms the card could take, what sets it): the bytes the function
+    must move (each input read once, each output written once) over the
+    memory rate, or its float32 operations over the peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def in_turns(torch, device, fns, order, reps):
+    """Mean ms per call of each named fn, measured in ``order`` (each name
+    twice, e.g. a, b, b, a); returns {name: [ms, ms]}."""
+    ms = {name: [] for name in fns}
+    for name in order:
+        ms[name].append(events_ms(torch, device, fns[name], reps[name]))
+    return ms
+
+
 def phase_tile_timing(torch, device):
-    """K2-K4 per pass on a 2048² tile (bench BCs, f32, k = 8, a corner
-    tile's flags) beside their plain versions, and the 4096² rates of the
-    2x2 slab and overlap paths on one card beside K1's, 100-step chunks;
-    each measured in turns."""
+    """K2-K5 per pass beside their plain versions and bounds: K2-K4 on a
+    2048² tile (bench BCs, f32, k = 8, a corner tile's flags), K5 on the
+    2009x2001 carrier tile of 4001² on 2x2 (the corner edge tile's flags)
+    in turns with K4; K2 beside conv2d with its five weights as a 3x3
+    cross.  Then the rates of the 2x2 slab and overlap paths at 4096² and
+    of the 2x2 carrier path at 4001² on one card beside K1's at both
+    sizes, 100-step chunks, true points only; each measured in turns."""
+    import torch.nn.functional as F
+
     from climate_sim_tpu_torch.ops import cuda_sharded as sh
-    from climate_sim_tpu_torch.ops.cuda_stencil import build_multistep_advance
+    from climate_sim_tpu_torch.ops.cuda_stencil import _stencil_weights, build_multistep_advance
     from climate_sim_tpu_torch.parallel import halo
     from climate_sim_tpu_torch.parallel.mesh import shard_field
 
@@ -565,6 +812,10 @@ def phase_tile_timing(torch, device):
     w = edge_parked(torch, m + 2 * k, m + 2 * k, seed=11, device=device).to(torch.float32)
     tile, xh, yh = slabs(torch, w, k)
     up = w[k - 1:-(k - 1), k - 1:-(k - 1)].contiguous()
+    cy, cx = CARRIER_TILE
+    wc_ = edge_parked(torch, cy + 2 * k, cx + 2 * k, seed=12, device=device).to(torch.float32)
+    ctile, cxh, cyh = slabs(torch, wc_, k)
+    f6 = (0, 1, 0, 1, *CARRIER_EDGE)
     pairs = {
         "K2": (lambda: sh.prepadded_kernel_step(up, cfg, cfg.dt),
                lambda: sh.prepadded_step_plain(up, cfg, cfg.dt)),
@@ -572,37 +823,135 @@ def phase_tile_timing(torch, device):
                lambda: sh.region_pass_plain(w, cfg, cfg.dt, k, m, m, flags)),
         "K4": (lambda: sh.sharded_tile_slab_multistep(tile, xh, yh, flags, cfg, cfg.dt, k),
                lambda: sh.slab_pass_plain(tile, xh, yh, flags, cfg, cfg.dt, k)),
+        "K5": (lambda: sh.carrier_tile_slab_multistep(ctile, cxh, cyh, f6, cfg, cfg.dt, k),
+               lambda: sh.carrier_pass_plain(ctile, cxh, cyh, f6, cfg, cfg.dt, k)),
     }
+    cells = m * m
+    bounds = {
+        "K2": bound(nbytes(up) + 4 * cells, FLOPS_PER_CELL_STEP * cells),
+        "K3": bound(nbytes(w) + 4 * cells, FLOPS_PER_CELL_STEP * k * cells),
+        "K4": bound(nbytes(tile, xh, yh, tile), FLOPS_PER_CELL_STEP * k * cells),
+        "K5": bound(nbytes(ctile, cxh, cyh, ctile), FLOPS_PER_CELL_STEP * k * cy * cx),
+    }
+    # Kernel windows of ~15-20 ms of device time each, so that the card's
+    # clocks settle within a window.
+    k2 = pairs["K2"][0]
+    for name, reps in (("K2", 500), ("K3", 150)):
+        kern, plain = pairs[name]
+        ms = in_turns(torch, device, {"kernel": kern, "plain": plain},
+                      ("plain", "kernel", "kernel", "plain"), {"kernel": reps, "plain": 5})
+        pairs[name] = ms
+    ms = in_turns(torch, device,
+                  {"K4": pairs["K4"][0], "K5": pairs["K5"][0],
+                   "K4 plain": pairs["K4"][1], "K5 plain": pairs["K5"][1]},
+                  ("K4 plain", "K5 plain", "K4", "K5", "K5", "K4", "K5 plain", "K4 plain"),
+                  {"K4": 150, "K5": 150, "K4 plain": 5, "K5 plain": 5})
+    for name in ("K4", "K5"):
+        pairs[name] = {"kernel": ms[name], "plain": ms[f"{name} plain"]}
+
+    # K2's one PyTorch call: conv2d of the padded tile with the weights as
+    # a 3x3 cross (cross-correlation: row 0 is ym, column 0 is xm), TF32 off.
+    wc, wxm, wxp, wym, wyp = _stencil_weights(cfg.dt, cfg.D, cfg.vx, cfg.vy, cfg.dx, cfg.dy)
+    cross = torch.tensor([[0.0, wym, 0.0], [wxm, wc, wxp], [0.0, wyp, 0.0]],
+                         dtype=torch.float32, device=device)[None, None]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        def conv():
+            return F.conv2d(up[None, None], cross)[0, 0]
+
+        err = float((conv() - sh.prepadded_kernel_step(up, cfg, cfg.dt)).abs().max())
+        if err > ATOL["float32"]:
+            fail(f"conv2d vs K2: max abs err {err:.3g}")
+        ms = in_turns(torch, device, {"K2": k2, "conv2d": conv},
+                      ("K2", "conv2d", "conv2d", "K2"), {"K2": 500, "conv2d": 500})
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    library = {"K2": sum(ms["conv2d"]) / 2}
+    print(f"[timing] K2's library call conv2d (3x3 cross, TF32 off) on the {m + 2}² padded"
+          f" tile: {' / '.join(f'{t:.4f}' for t in ms['conv2d'])} ms (K2 in the same turns"
+          f" {' / '.join(f'{t:.4f}' for t in ms['K2'])} ms); agrees with K2 to {err:.3g}")
+
     times = {}
-    for name, (kern, plain) in pairs.items():
-        p1 = events_ms(torch, device, plain, 5)
-        k1 = events_ms(torch, device, kern, 50)
-        k2 = events_ms(torch, device, kern, 50)
-        p2 = events_ms(torch, device, plain, 5)
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+    for name, v in pairs.items():
+        kern_ms, plain_ms = sum(v["kernel"]) / 2, sum(v["plain"]) / 2
+        times[name] = (kern_ms, plain_ms)
         steps = 1 if name == "K2" else k
-        print(f"[timing] {name} on a {m}² tile, f32, {steps} step(s) per pass:"
-              f" kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms per pass"
-              f" ({m * m * steps / (times[name][0] * 1e6):.1f} Gpoint/s)")
+        shape = f"{cy}x{cx} carrier tile" if name == "K5" else f"{m}² tile"
+        pts = (cy * cx if name == "K5" else cells) * steps
+        b, by = bounds[name]
+        print(f"[timing] {name} on a {shape}, f32, {steps} step(s) per pass:"
+              f" kernel {' / '.join(f'{t:.4f}' for t in v['kernel'])} ms, plain"
+              f" {' / '.join(f'{t:.4f}' for t in v['plain'])} ms per pass"
+              f" ({pts / (kern_ms * 1e6):.1f} Gpoint/s); bound {b:.4f} ms ({by}),"
+              f" {b / kern_ms:.1%} of it reached")
 
     bcfg, dt, u0, mesh = bench_setup(torch, device)
+    ccfg, cdt, cu0, _ = bench_setup(torch, device, n=CARRIER_GRID)
     tiles = shard_field(u0, mesh)
     k1_adv = build_multistep_advance(bcfg, dt)
+    k1c_adv = build_multistep_advance(ccfg, cdt)
     slab_adv = halo.build_sharded_multistep_advance(bcfg, mesh, dt)
     over_adv = halo.build_sharded_overlap_advance(bcfg, mesh, dt)
+    car_adv = halo.build_carrier_slab_advance(ccfg, mesh, cdt)
+    carrier = car_adv.embed(cu0)
     runs = {"K1": lambda: k1_adv(100)(u0), "slab": lambda: slab_adv(100)(tiles),
-            "overlap": lambda: over_adv(100)(tiles)}
-    ms = {name: [] for name in runs}
-    for name in ("K1", "slab", "overlap", "overlap", "slab", "K1"):
-        ms[name].append(events_ms(torch, device, runs[name], 5))
-    pts = bcfg.nx * bcfg.ny * 100
-    rates = {name: pts / (sum(v) / len(v) * 1e6) for name, v in ms.items()}
+            "overlap": lambda: over_adv(100)(tiles),
+            f"K1 {CARRIER_GRID}²": lambda: k1c_adv(100)(cu0),
+            "carrier": lambda: car_adv(100)(carrier)}
+    order = ("K1", f"K1 {CARRIER_GRID}²", "carrier", "slab", "overlap",
+             "overlap", "slab", "carrier", f"K1 {CARRIER_GRID}²", "K1")
+    ms = in_turns(torch, device, runs, order, {name: 5 for name in runs})
+    rates = {}
     for name, v in ms.items():
-        print(f"[timing] 4096² f32 bench BCs, 100-step chunk, {name}"
-              f"{' (2x2 mesh of one card)' if name != 'K1' else ' (single device)'}:"
-              f" {' / '.join(f'{t:.3f}' for t in v)} ms,"
-              f" {rates[name]:.1f} Gpoint/s ({rates[name] / rates['K1']:.2f}x K1)")
-    return times, rates
+        n = CARRIER_GRID if name in ("carrier", f"K1 {CARRIER_GRID}²") else BENCH_GRID
+        rates[name] = n * n * 100 / (sum(v) / len(v) * 1e6)
+    for name, v in ms.items():
+        where = " (2x2 mesh of one card)" if name in ("slab", "overlap", "carrier") else " (single device)"
+        size = f"{CARRIER_GRID if name in ('carrier', f'K1 {CARRIER_GRID}²') else BENCH_GRID}²"
+        print(f"[timing] {size} f32 bench BCs, 100-step chunk, {name}{where}:"
+              f" {' / '.join(f'{t:.3f}' for t in v)} ms, {rates[name]:.1f} Gpoint/s"
+              f" ({rates[name] / rates['K1']:.2f}x K1 at {BENCH_GRID}²,"
+              f" {rates[name] / rates[f'K1 {CARRIER_GRID}²']:.2f}x K1 at {CARRIER_GRID}²)")
+    return times, rates, bounds, library
+
+
+def phase_profile_carrier(torch, device, tmp):
+    """A 1000-step carrier run at 4001² on a 2x2 mesh of one card through
+    the driver, output off, unprofiled and then with ``profile_dir``: the
+    kernel time by name from the trace, and the busy share of the wall."""
+    from climate_sim_tpu_torch.config import merged_config
+    from climate_sim_tpu_torch.runtime import driver
+
+    walls = {}
+    for label in ("unprofiled", "profiled"):
+        args = ["--kernel=pallas", f"--nx={CARRIER_GRID}", f"--ny={CARRIER_GRID}",
+                "--mesh.x=2", "--mesh.y=2", "--output.enable=false"]
+        if label == "profiled":
+            args.append(f"--profile_dir={os.path.join(tmp, 'profile')}")
+        buf = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(buf):
+            driver.run_simulation(merged_config(BENCH_CFG, args), [device] * 4)
+        walls[label] = float(re.search(r"^timing: total_max=(\S+) s", buf.getvalue(), re.M).group(1))
+        launches = read_counts()["K5"]
+    with open(os.path.join(tmp, "profile", "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    by_name = {}
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            key = "tile_stencil_kernel (K5)" if "tile_stencil_kernel" in ev["name"] else ev["name"][:60]
+            n, us = by_name.get(key, (0, 0.0))
+            by_name[key] = (n + 1, us + ev.get("dur", 0.0))
+    total_ms = sum(us for _, us in by_name.values()) / 1e3
+    print(f"[profile] carrier {CARRIER_GRID}² on 2x2, 1000 steps, output off: timing wall"
+          f" {walls['unprofiled']:.4f} s unprofiled, {walls['profiled']:.4f} s profiled;"
+          f" K5 launches {launches} (incl. warm-up); kernel time {total_ms:.1f} ms,"
+          f" busy {total_ms / 1e3 / walls['profiled']:.1%} of the profiled wall,"
+          f" {total_ms / 1e3 / walls['unprofiled']:.1%} of the unprofiled")
+    for key, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
+        print(f"[profile]   {us / 1e3:8.2f} ms in {n:5d} launches: {key}")
+    return walls, total_ms
 
 
 def main() -> int:
@@ -624,6 +973,7 @@ def main() -> int:
     phase_build()
     cases, worst = phase_kernel_vs_plain(torch, device)
     tile_cases, tile_worst = phase_tile_kernels_vs_plain(torch, device)
+    tile_cases["K5"], tile_worst["K5"] = phase_carrier_kernel_vs_plain(torch, device)
     launches = {n: 0 for n in KERNEL_NAMES}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -632,29 +982,35 @@ def main() -> int:
             ["--steps=1000", "--out_every=500"], tmp,
         )
         launches["K1"] += phase_main_path(torch, device, "dev", DEV_CFG, [], tmp)
-        bench = ["--steps=1000", "--out_every=500"]
         for label, cfg_path, extra, mesh_xy, kernel in (
-            ("bench_4096_2x2_slab", BENCH_CFG, bench, (2, 2), "K4"),
-            ("bench_4096_2x2_overlap", BENCH_CFG, [*bench, "--halo_overlap=true"], (2, 2), "K3"),
+            ("bench_4096_2x2_slab", BENCH_CFG, BENCH_STEPS, (2, 2), "K4"),
+            ("bench_4096_2x2_overlap", BENCH_CFG, [*BENCH_STEPS, "--halo_overlap=true"],
+             (2, 2), "K3"),
             ("dev_1x4", DEV_CFG, [], (1, 4), "K4"),
             ("dev_4x1", DEV_CFG, [], (4, 1), "K4"),
+            *((*run, "K5") for run in CARRIER_RUNS),
         ):
             launches[kernel] += phase_sharded_run(
                 torch, device, label, cfg_path, extra, mesh_xy, kernel, tmp)[0]
+        launches["K2"] += phase_per_step(torch, device)[0]
+        launches["K2"] += phase_padded_per_step(torch, device)
+        k_ms, p_ms, k1_bound = phase_timing(torch, device)
+        tile_times, _, bounds, library = phase_tile_timing(torch, device)
+        phase_profile_carrier(torch, device, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    launches["K2"], _ = phase_per_step(torch, device)
-    k_ms, p_ms = phase_timing(torch, device)
-    tile_times, _ = phase_tile_timing(torch, device)
 
     sources = {"K1": "multistep_stencil.cu", "K2": "sharded_stencil.cu",
-               "K3": "sharded_stencil.cu", "K4": "sharded_stencil.cu"}
-    replaces = {"K1": 1309, "K2": 1371, "K3": 1418, "K4": 1525}
+               "K3": "sharded_stencil.cu", "K4": "sharded_stencil.cu",
+               "K5": "sharded_stencil.cu"}
+    replaces = {"K1": 1309, "K2": 1371, "K3": 1418, "K4": 1525, "K5": 1588}
     titles = {"K1": "K1 multistep_stencil", "K2": "K2 prepadded_kernel_step",
-              "K3": "K3 tile_region_multistep", "K4": "K4 sharded_tile_slab_multistep"}
+              "K3": "K3 tile_region_multistep", "K4": "K4 sharded_tile_slab_multistep",
+              "K5": "K5 carrier_tile_slab_multistep"}
     all_cases = {"K1": cases, **tile_cases}
     all_worst = {"K1": worst, **tile_worst}
     all_times = {"K1": (k_ms, p_ms), **tile_times}
+    all_bounds = {"K1": k1_bound, **bounds}
     for n in KERNEL_NAMES:
         if launches[n] < 1:
             fail(f"{n} was launched no time on its path")
@@ -669,6 +1025,9 @@ def main() -> int:
         "cases": all_cases[n],
         "ms": all_times[n][0],
         "plain_ms": all_times[n][1],
+        "bound_ms": all_bounds[n][0],
+        "bound_by": all_bounds[n][1],
+        "library_ms": library.get(n),
     } for n in KERNEL_NAMES]}
     print(json.dumps(kernels))
     print(smi)

@@ -45,6 +45,9 @@ def from_reference_sharded(
     cfg_dict: Dict[str, Any], u, mesh: Mesh
 ) -> Tuple[SimConfig, Tiles]:
     """(port config, tile grid on ``mesh``) from a JAX config dict and the
-    global field; the mesh must divide the config's grid."""
+    global field.  A grid the mesh does not divide gives the reference's
+    remainder tiles (the per-step path's layout); the carrier path takes
+    the global field of :func:`from_reference` through its advance's
+    ``embed`` instead."""
     cfg, t = from_reference(cfg_dict, u, "cpu")
     return cfg, shard_field(t, mesh)

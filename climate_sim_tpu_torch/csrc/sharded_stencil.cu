@@ -1,6 +1,6 @@
-// K2, K3 and K4: the kernels of the sharded path, for one NVIDIA Hopper
-// card (built for sm_90a).  Each advances one tile (or one region of a
-// tile) of a mesh-decomposed field whose halos have already been
+// K2, K3, K4 and K5: the kernels of the sharded path, for one NVIDIA
+// Hopper card (built for sm_90a).  Each advances one tile (or one region
+// of a tile) of a mesh-decomposed field whose halos have already been
 // exchanged; each writes a fresh output and never its input.
 //
 // Replaces the TPU kernels of climate_sim_tpu/ops/pallas_stencil.py:
@@ -18,6 +18,13 @@
 //      and the y-halo (2kh, nx+2kh) [bottom kh rows ; top kh rows] at the
 //      x-extended width, whose corners hold the diagonal neighbours.  The
 //      TPU's 128-lane slab pads are a TPU layout answer and are not kept.
+//   K5 carrier_tile_slab_multistep: K4 on one tile of a zero-padded
+//      carrier (a grid the mesh does not divide, embedded in mesh-uniform
+//      tiles).  The true right/top edge lies at a runtime tile column lx /
+//      row ly of the tile that holds it; the edge rule below fires there
+//      instead of at the tile's own edge, and the pad beyond evolves as
+//      inert garbage that the fixup keeps out of the true extent.  The
+//      whole (ny, nx) carrier tile, pad included, goes to a fresh output.
 //
 // What bounds them on the card: the same as K1 (device-memory bytes per
 // pass at k = 1, the shared-memory sub-steps at k = 8), plus, for K4, the
@@ -32,7 +39,10 @@
 // bottom-edge tile, or r == ny on a top-edge tile whose top halo holds the
 // wrap block of a one-sided periodic axis.  It reads the top ghost for yp
 // when the top side is fixed and the row is global row ny-1: r == ny-1 on
-// a top-edge tile, r == -1 on a bottom-edge tile.  Columns likewise.  These
+// a top-edge tile, r == -1 on a bottom-edge tile.  Columns likewise.  On a
+// carrier tile (K5) the true extent l replaces the tile extent n on the
+// high side: the top fixup sits at r == ly-1 and the one-sided wrap block
+// staged above the true edge starts at r == ly; K2-K4 pass l == n.  These
 // are the TPU kernel's flag-gated fixups and its wrap_*_mask patches as
 // one rule; the extra cases the rule also sets (a wrap row beyond a fixed
 // side) sit behind that side's own fixup and change no output.  All flags
@@ -46,6 +56,7 @@ using namespace climate;
 
 struct TileParams {
   int ny, nx;         // output extent
+  int ly, lx;         // true extent on a top/right-edge tile (K5), else ny, nx
   int kh;             // halo depth of the inputs (>= k)
   int flags[4];       // left, right, bottom, top: 1 on the physical edge
   long long ld_out;   // output row stride
@@ -81,14 +92,15 @@ struct SlabSource {
   }
 };
 
-// Edge byte of window line g (tile-local) along an axis of extent n.
-__device__ __forceinline__ unsigned char edge_byte(int g, int n, int fix_lo,
+// Edge byte of window line g (tile-local) along an axis whose true extent
+// on a high-edge tile is l.
+__device__ __forceinline__ unsigned char edge_byte(int g, int l, int fix_lo,
                                                    int fix_hi, int flag_lo,
                                                    int flag_hi) {
   const bool lo = fix_lo != FIX_NONE &&
-                  ((flag_lo && g == 0) || (flag_hi && g == n));
+                  ((flag_lo && g == 0) || (flag_hi && g == l));
   const bool hi = fix_hi != FIX_NONE &&
-                  ((flag_hi && g == n - 1) || (flag_lo && g == -1));
+                  ((flag_hi && g == l - 1) || (flag_lo && g == -1));
   return (lo ? 1 : 0) | (hi ? 2 : 0);
 }
 
@@ -104,10 +116,10 @@ __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
   const int* fix = p.s.fix;
 
   for (int i = tid; i < w.wy; i += BLOCK_X * BLOCK_Y) {
-    w.rowf[i] = edge_byte(y0 + i, p.ny, fix[2], fix[3], p.flags[2], p.flags[3]);
+    w.rowf[i] = edge_byte(y0 + i, p.ly, fix[2], fix[3], p.flags[2], p.flags[3]);
   }
   for (int i = tid; i < w.wx; i += BLOCK_X * BLOCK_Y) {
-    w.colf[i] = edge_byte(x0 + i, p.nx, fix[0], fix[1], p.flags[0], p.flags[1]);
+    w.colf[i] = edge_byte(x0 + i, p.lx, fix[0], fix[1], p.flags[0], p.flags[1]);
   }
   // The window covers tile rows/columns [-k, n+k); the part of a ragged
   // last block beyond that feeds only masked outputs and is zero-filled.
@@ -177,6 +189,8 @@ bool make_tile_params(TileParams* p, int ny, int nx, int kh, long long ld_out,
   }
   p->ny = ny;
   p->nx = nx;
+  p->ly = ny;
+  p->lx = nx;
   p->kh = kh;
   p->ld_out = ld_out;
   const int flags[4] = {flag_left, flag_right, flag_bottom, flag_top};
@@ -185,6 +199,25 @@ bool make_tile_params(TileParams* p, int ny, int nx, int kh, long long ld_out,
     p->flags[i] = flags[i];
   }
   return true;
+}
+
+int slab_dispatch(int dtype, const void* tile, const void* xhalo,
+                  const void* yhalo, void* out, const TileParams& p,
+                  void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return static_cast<int>(
+          launch_slab<float, float>(tile, xhalo, yhalo, out, p, s));
+    case 1:
+      return static_cast<int>(
+          launch_slab<double, double>(tile, xhalo, yhalo, out, p, s));
+    case 2:
+      return static_cast<int>(
+          launch_slab<__nv_bfloat16, float>(tile, xhalo, yhalo, out, p, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 int region_dispatch(int dtype, const void* in, long long ld_in, void* out,
@@ -261,20 +294,31 @@ int climate_slab_multistep(const void* tile, const void* xhalo,
                         flag_right, flag_bottom, flag_top, bc_value)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return static_cast<int>(
-          launch_slab<float, float>(tile, xhalo, yhalo, out, p, s));
-    case 1:
-      return static_cast<int>(
-          launch_slab<double, double>(tile, xhalo, yhalo, out, p, s));
-    case 2:
-      return static_cast<int>(
-          launch_slab<__nv_bfloat16, float>(tile, xhalo, yhalo, out, p, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  return slab_dispatch(dtype, tile, xhalo, yhalo, out, p, stream);
+}
+
+// K5: K4's buffers on a carrier tile (ny, nx) whose true extent on a
+// top/right-edge tile is (ly, lx), 1 <= ly <= ny, 1 <= lx <= nx.  The
+// flags' top/right mark the tile holding the true edge.
+int climate_carrier_multistep(const void* tile, const void* xhalo,
+                              const void* yhalo, void* out, int ny, int nx,
+                              int ly, int lx, int k, int kh, int dtype,
+                              double wc, double wxm, double wxp, double wym,
+                              double wyp, int fix_left, int fix_right,
+                              int fix_bottom, int fix_top, int flag_left,
+                              int flag_right, int flag_bottom, int flag_top,
+                              double bc_value, void* stream) {
+  TileParams p;
+  if (out == tile || out == xhalo || out == yhalo || ly < 1 || ly > ny ||
+      lx < 1 || lx > nx ||
+      !make_tile_params(&p, ny, nx, kh, nx, k, wc, wxm, wxp, wym, wyp,
+                        fix_left, fix_right, fix_bottom, fix_top, flag_left,
+                        flag_right, flag_bottom, flag_top, bc_value)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  p.ly = ly;
+  p.lx = lx;
+  return slab_dispatch(dtype, tile, xhalo, yhalo, out, p, stream);
 }
 
 }  // extern "C"

@@ -111,6 +111,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         #     edge flags, bc_value, stream
         "climate_slab_multistep":
             [vp, vp, vp, vp, ci, ci, ci, ci, ci, *weights, *sides, *sides, cd, vp],
+        # K5: K4's arguments with the true extent (ly, lx) after (ny, nx)
+        "climate_carrier_multistep":
+            [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, *weights, *sides, *sides, cd, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

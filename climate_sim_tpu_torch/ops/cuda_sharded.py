@@ -1,4 +1,4 @@
-"""K2, K3 and K4, the sharded path's kernels, and their plain versions.
+"""K2, K3, K4 and K5, the sharded path's kernels, and their plain versions.
 
 The port of the tile kernels of ``climate_sim_tpu/ops/pallas_stencil.py``,
 with the JAX names:
@@ -12,21 +12,26 @@ with the JAX names:
 * K4 :func:`sharded_tile_slab_multistep`: k steps on one tile read straight
   from the tile and its compact halo slabs, xhalo (my, 2kh) and yhalo
   (2kh, mx+2kh) (:func:`climate_sim_tpu_torch.parallel.halo.exchange_halos_slabs`).
+* K5 :func:`carrier_tile_slab_multistep`: K4 on one tile of a zero-padded
+  carrier (:func:`climate_sim_tpu_torch.parallel.halo.build_carrier_slab_advance`),
+  the true right/top edge at a runtime tile column/row.
 
-All three are one CUDA template (``csrc/sharded_stencil.cu``) over K1's
+All four are one CUDA template (``csrc/sharded_stencil.cu``) over K1's
 sub-step core.  Edge flags ``(left, right, bottom, top)``, 1 where the
 tile's side lies on the physical grid edge, are host integers passed as
 kernel scalars.  The edge rule (see the CUDA source) gives the flag-gated
 BC fixups and the one-sided-periodic wrap patches of the TPU kernel; all
-flags 0 is K3's ``flagged=False``.
+flags 0 is K3's ``flagged=False``.  K5 takes six: the four, then the true
+extent ``(ly, lx)`` of the tile that holds the top/right edge, where the
+rule fires instead of at the tile's own extent.
 
 Each wrapper takes the kernel's plain version for a CPU tensor, launches
 the kernel on the current stream for a CUDA tensor, or raises; each counts
 its launches in ``<wrapper>.launches``.  The plain versions
 (:func:`region_pass_plain`, :func:`slab_pass_plain`,
-:func:`prepadded_step_plain`) run the same sub-steps in torch ops, in the
-kernel's accumulation order.  bf16 is a storage mode: f32 arithmetic, one
-rounding per pass.
+:func:`carrier_pass_plain`, :func:`prepadded_step_plain`) run the same
+sub-steps in torch ops, in the kernel's accumulation order.  bf16 is a
+storage mode: f32 arithmetic, one rounding per pass.
 """
 
 from __future__ import annotations
@@ -60,14 +65,15 @@ def _weights(cfg: SimConfig, dt: float):
     return _stencil_weights(dt, cfg.D, cfg.vx, cfg.vy, cfg.dx, cfg.dy)
 
 
-def _edge_masks(n: int, k: int, fix_lo: int, fix_hi: int, flag_lo, flag_hi,
-                device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The edge rule along one axis, over window lines g in [-k, n+k): (lo,
-    hi) masks of the lines whose low (high) neighbour operand is the BC
-    ghost (see csrc/sharded_stencil.cu)."""
+def _edge_masks(n: int, l: int, k: int, fix_lo: int, fix_hi: int, flag_lo,
+                flag_hi, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The edge rule along one axis of extent n whose true extent on a
+    high-edge tile is l, over window lines g in [-k, n+k): (lo, hi) masks
+    of the lines whose low (high) neighbour operand is the BC ghost (see
+    csrc/sharded_stencil.cu)."""
     g = torch.arange(-k, n + k, device=device)
-    lo = (g == 0) & bool(flag_lo) | (g == n) & bool(flag_hi)
-    hi = (g == n - 1) & bool(flag_hi) | (g == -1) & bool(flag_lo)
+    lo = (g == 0) & bool(flag_lo) | (g == l) & bool(flag_hi)
+    hi = (g == l - 1) & bool(flag_hi) | (g == -1) & bool(flag_lo)
     return lo & (fix_lo != _FIX_NONE), hi & (fix_hi != _FIX_NONE)
 
 
@@ -77,15 +83,17 @@ def _ghost(fix: int, a: torch.Tensor):
     return a if fix == _FIX_NEUMANN else 0.0
 
 
-def _substeps_plain(win: torch.Tensor, k: int, weights, fixes, flags
-                    ) -> torch.Tensor:
+def _substeps_plain(win: torch.Tensor, k: int, weights, fixes, flags,
+                    extent: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """k sub-steps on a (ny+2k, nx+2k) window in compute precision ->
-    (ny, nx); each sub-step drops the window's outer ring."""
+    (ny, nx); each sub-step drops the window's outer ring.  ``extent`` is
+    the true (ly, lx) of a carrier tile (default (ny, nx))."""
     wc, wxm, wxp, wym, wyp = weights
     fl, fr, fb, ft = fixes
     ny, nx = win.shape[0] - 2 * k, win.shape[1] - 2 * k
-    ylo, yhi = _edge_masks(ny, k, fb, ft, flags[2], flags[3], win.device)
-    xlo, xhi = _edge_masks(nx, k, fl, fr, flags[0], flags[1], win.device)
+    ly, lx = extent or (ny, nx)
+    ylo, yhi = _edge_masks(ny, ly, k, fb, ft, flags[2], flags[3], win.device)
+    xlo, xhi = _edge_masks(nx, lx, k, fl, fr, flags[0], flags[1], win.device)
     a = win
     for _ in range(k):
         ylo, yhi, xlo, xhi = ylo[1:-1], yhi[1:-1], xlo[1:-1], xhi[1:-1]
@@ -111,14 +119,15 @@ def _compute(t: torch.Tensor) -> torch.Tensor:
 
 def region_pass_plain(padded: torch.Tensor, cfg: SimConfig, dt: float,
                       k: int, ny_r: int, nx_r: int,
-                      flags: Sequence[int] = NO_FLAGS, khalo: int = 0
-                      ) -> torch.Tensor:
+                      flags: Sequence[int] = NO_FLAGS, khalo: int = 0,
+                      extent: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The plain version of K3: k sub-steps of the weighted stencil on the
-    region's window under the edge rule -> (ny_r, nx_r)."""
+    region's window under the edge rule -> (ny_r, nx_r).  ``extent`` is
+    K5's true (ly, lx)."""
     kh = khalo or k
     o = kh - k
     win = _compute(padded[o:o + ny_r + 2 * k, o:o + nx_r + 2 * k])
-    out = _substeps_plain(win, k, _weights(cfg, dt), _fixes(cfg), flags)
+    out = _substeps_plain(win, k, _weights(cfg, dt), _fixes(cfg), flags, extent)
     return out.to(padded.dtype)
 
 
@@ -139,6 +148,19 @@ def slab_pass_plain(tile: torch.Tensor, xhalo: torch.Tensor,
     my, mx = tile.shape
     return region_pass_plain(slab_window(tile, xhalo, yhalo, kh), cfg, dt, k,
                              my, mx, flags, kh)
+
+
+def carrier_pass_plain(tile: torch.Tensor, xhalo: torch.Tensor,
+                       yhalo: torch.Tensor, flags6: Sequence[int],
+                       cfg: SimConfig, dt: float, k: int, khalo: int = 0
+                       ) -> torch.Tensor:
+    """The plain version of K5: K4's plain pass with the edge rule's high
+    side at the true extent ``flags6[4:6] = (ly, lx)`` -> the whole
+    (my, mx) carrier tile."""
+    kh = khalo or k
+    my, mx = tile.shape
+    return region_pass_plain(slab_window(tile, xhalo, yhalo, kh), cfg, dt, k,
+                             my, mx, flags6[:4], kh, (int(flags6[4]), int(flags6[5])))
 
 
 def prepadded_step_plain(up: torch.Tensor, cfg: SimConfig, dt: float
@@ -167,6 +189,23 @@ def _check_k(k: int, khalo: int) -> None:
         raise ValueError(f"k must be an int in [1, {MAX_STEPS_PER_PASS}], got {k!r}")
     if khalo < k:
         raise ValueError(f"halo depth {khalo} < k={k}")
+
+
+def _check_slabs(tile: torch.Tensor, xhalo: torch.Tensor, yhalo: torch.Tensor,
+                 k: int, kh: int) -> Tuple[int, int]:
+    """K4's and K5's input checks; returns the tile's (my, mx)."""
+    _check_k(k, kh)
+    _check_tensor("tile", tile, 1, 1)
+    my, mx = tile.shape
+    if kh > my or kh > mx:
+        raise ValueError(f"halo depth {kh} exceeds the ({my}, {mx}) tile")
+    for name, t, shape in (("xhalo", xhalo, (my, 2 * kh)),
+                           ("yhalo", yhalo, (2 * kh, mx + 2 * kh))):
+        _check_tensor(name, t, *shape)
+        if tuple(t.shape) != shape or t.dtype != tile.dtype:
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)}, need"
+                             f" {tile.dtype} {shape}")
+    return my, mx
 
 
 def _check_flags(flags: Sequence[int]) -> Tuple[int, int, int, int]:
@@ -276,17 +315,7 @@ def sharded_tile_slab_multistep(tile: torch.Tensor, xhalo: torch.Tensor,
     (my, 2*khalo) and yhalo (2*khalo, mx+2*khalo); ``khalo`` defaults to
     k.  Returns a fresh (my, mx) tensor."""
     kh = khalo or k
-    _check_k(k, kh)
-    _check_tensor("tile", tile, 1, 1)
-    my, mx = tile.shape
-    if kh > my or kh > mx:
-        raise ValueError(f"halo depth {kh} exceeds the ({my}, {mx}) tile")
-    for name, t, shape in (("xhalo", xhalo, (my, 2 * kh)),
-                           ("yhalo", yhalo, (2 * kh, mx + 2 * kh))):
-        _check_tensor(name, t, *shape)
-        if tuple(t.shape) != shape or t.dtype != tile.dtype:
-            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)}, need"
-                             f" {tile.dtype} {shape}")
+    my, mx = _check_slabs(tile, xhalo, yhalo, k, kh)
     flags = _check_flags(edge_flags)
     if tile.device.type == "cpu":
         return slab_pass_plain(tile, xhalo, yhalo, flags, cfg, dt, k, kh)
@@ -301,6 +330,39 @@ def sharded_tile_slab_multistep(tile: torch.Tensor, xhalo: torch.Tensor,
 
 
 sharded_tile_slab_multistep.launches = 0
+
+
+def carrier_tile_slab_multistep(tile: torch.Tensor, xhalo: torch.Tensor,
+                                yhalo: torch.Tensor, flags6: Sequence[int],
+                                cfg: SimConfig, dt: float, k: int,
+                                khalo: int = 0) -> torch.Tensor:
+    """K5: advance one (my, mx) carrier tile k steps from the tile and its
+    slabs (K4's layout, ``khalo`` deep, default k).  ``flags6`` is
+    ``(left, right, bottom, top, ly, lx)``: the edge flags, ``right`` /
+    ``top`` marking the tile that holds the true right / top edge, and the
+    true extent there, 1 <= ly <= my and 1 <= lx <= mx.  Returns a fresh
+    (my, mx) tensor, pad included (the pad holds garbage)."""
+    kh = khalo or k
+    my, mx = _check_slabs(tile, xhalo, yhalo, k, kh)
+    if len(flags6) != 6:
+        raise ValueError(f"flags6 must be six values, got {flags6!r}")
+    flags = _check_flags(flags6[:4])
+    ly, lx = int(flags6[4]), int(flags6[5])
+    if not (1 <= ly <= my and 1 <= lx <= mx):
+        raise ValueError(f"true extent ({ly}, {lx}) outside the ({my}, {mx}) tile")
+    if tile.device.type == "cpu":
+        return carrier_pass_plain(tile, xhalo, yhalo, (*flags, ly, lx), cfg, dt, k, kh)
+    out = torch.empty_like(tile)
+    _launch("K5", [tile, xhalo, yhalo], lambda lib, stream: lib.climate_carrier_multistep(
+        tile.data_ptr(), xhalo.data_ptr(), yhalo.data_ptr(), out.data_ptr(),
+        my, mx, ly, lx, k, kh, _DTYPE_CODES[tile.dtype], *_weights(cfg, dt),
+        *_fixes(cfg), *flags, 0.0, stream,
+    ))
+    carrier_tile_slab_multistep.launches += 1
+    return out
+
+
+carrier_tile_slab_multistep.launches = 0
 
 
 def make_pallas_interior_step(cfg: SimConfig, dt: float

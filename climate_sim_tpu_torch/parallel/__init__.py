@@ -1,9 +1,12 @@
-"""The sharded path on grids the mesh divides: a tile mesh over a list of
-torch devices (:mod:`.mesh`) and the halo exchanges and advances on it
-(:mod:`.halo`), the port of ``climate_sim_tpu/parallel``."""
+"""The sharded paths: a tile mesh over a list of torch devices
+(:mod:`.mesh`) and the halo exchanges and advances on it (:mod:`.halo`),
+for grids the mesh divides and for grids it does not; the port of
+``climate_sim_tpu/parallel``."""
 
 from .halo import (
     axis_wrap_flags,
+    build_carrier_slab_advance,
+    build_padded_advance,
     build_sharded_advance,
     build_sharded_multistep_advance,
     build_sharded_overlap_advance,
@@ -19,11 +22,14 @@ from .mesh import (
     gather_field,
     make_mesh,
     shard_field,
+    split_sizes,
 )
 
 __all__ = [
     "Mesh",
     "axis_wrap_flags",
+    "build_carrier_slab_advance",
+    "build_padded_advance",
     "build_sharded_advance",
     "build_sharded_multistep_advance",
     "build_sharded_overlap_advance",
@@ -36,4 +42,5 @@ __all__ = [
     "gather_field",
     "make_mesh",
     "shard_field",
+    "split_sizes",
 ]

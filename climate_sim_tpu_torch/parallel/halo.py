@@ -1,7 +1,7 @@
-"""Halo exchange and the sharded advances: the port of the divisible-grid
-half of ``climate_sim_tpu/parallel/halo.py`` (the counterpart of the
-reference's nonblocking MPI halo exchange, src/halo.cpp:6-49, and of its
-physical-edge BCs, boundary.cpp:12-54).
+"""Halo exchange and the sharded advances: the port of
+``climate_sim_tpu/parallel/halo.py`` (the counterpart of the reference's
+nonblocking MPI halo exchange, src/halo.cpp:6-49, and of its physical-edge
+BCs, boundary.cpp:12-54).
 
 The field is a (py, px) grid of tiles on a :class:`.mesh.Mesh`.  Where the
 JAX package runs one ``shard_map`` program and moves faces with
@@ -27,8 +27,13 @@ Advances (``advance(chunk)`` -> fn(tiles) -> tiles):
 * :func:`build_sharded_overlap_advance`: per pass, the exchange on a side
   stream while K3 advances each tile's interior, then K3 on four bands.
 
-The carrier half of the JAX file (grids the mesh does not divide) is not
-ported.
+Grids the mesh does not divide:
+
+* :func:`build_carrier_slab_advance`: the field embedded in mesh-uniform
+  zero-padded carrier tiles, one slab exchange with staged wrap blocks and
+  one K5 launch per tile and pass;
+* :func:`build_padded_advance`: the per-step advance on the reference's
+  remainder tiles (:func:`.mesh.split_sizes`).
 """
 
 from __future__ import annotations
@@ -43,10 +48,12 @@ from ..config import BCType, SimConfig
 from ..ops.boundary import _ghost_line
 from ..ops.cuda_sharded import (
     NO_FLAGS,
+    carrier_tile_slab_multistep,
     sharded_tile_slab_multistep,
     tile_region_multistep,
 )
-from ..ops.cuda_stencil import pick_steps_per_pass
+from ..ops.cuda_stencil import _stencil_weights, pick_steps_per_pass
+from ..ops.step import make_interior_step
 from .mesh import Mesh, Tiles, divisible
 
 
@@ -178,7 +185,7 @@ def exchange_halos_slabs(tiles: Tiles, mesh: Mesh, k: int, wrap_x: bool = True,
 def _make_chunk_advance(tile_pass, k: int):
     """``advance(chunk)`` running ceil(chunk/k) tile passes (a remainder
     pass takes fewer steps).  ``advance.pass_count(chunk)`` is that number,
-    per tile."""
+    per tile; ``advance.steps_per_pass`` is k."""
 
     def advance(chunk: int):
         def body(tiles: Tiles) -> Tiles:
@@ -192,6 +199,7 @@ def _make_chunk_advance(tile_pass, k: int):
         return body
 
     advance.pass_count = lambda chunk: -(-chunk // k)
+    advance.steps_per_pass = k
     return advance
 
 
@@ -342,4 +350,224 @@ def build_sharded_advance(cfg: SimConfig, mesh: Mesh, dt: float,
     advance.pass_count = lambda k: k
     advance.kernel = getattr(interior_step, "kernel", None)
     advance.path = "per-step"
+    return advance
+
+
+def build_padded_advance(cfg: SimConfig, mesh: Mesh, dt: float):
+    """The per-step path on a grid the mesh does not divide: the port's one
+    counterpart of the JAX package's padded-GSPMD advance (both axes
+    indivisible, halo.py:947-999) and its one-axis GSPMD route
+    (driver.py:382-404).  The field lies in the reference's remainder tiles
+    (:func:`.mesh.shard_field`, decomp.cpp:29-30), which the width-1
+    exchange takes as they are, so this is :func:`build_sharded_advance`
+    with :func:`..ops.step.make_interior_step`: torch ops for
+    ``kernel=jnp``, K2 for ``pallas``/``pallas_multistep``."""
+    advance = build_sharded_advance(cfg, mesh, dt, make_interior_step(cfg, dt))
+    advance.path = "remainder per-step"
+    return advance
+
+
+def _carrier_axis_plan(n: int, p: int, periodic: str, kh: int):
+    """Per-axis carrier geometry (JAX halo.py:547-608 at ``align=1``, without
+    its ``min_m`` floor): ``(m, edge, l)``, the carrier tile extent ``m``
+    (``m * p >= n``), the index of the tile that holds the true high edge,
+    and the true extent ``l`` there; None when the axis cannot stage its
+    wrap blocks.  The pad lies at the high end; an axis that ``p`` divides
+    (a single-tile axis among them) has none.
+
+    ``periodic`` is the axis's wrap mode: ``"none"``, ``"two"`` (torus),
+    ``"low"`` or ``"high"`` (only that side periodic).  Staging room, each
+    block ``kh`` lines: ``"two"`` needs the edge on the last tile, ``2kh``
+    pad lines (wrap-head and tail-mirror, disjoint) and ``kh`` true lines;
+    ``"low"`` the last tile, ``kh`` pad lines and ``kh`` true lines;
+    ``"high"`` ``kh`` pad and ``kh`` true lines on the edge tile, which
+    need not be the last."""
+    if n % p == 0:
+        return n // p, p - 1, n // p
+    m = -(-n // p)
+    if periodic == "none":
+        e = -(-n // m) - 1
+        return m, e, n - e * m
+    if n < kh:
+        return None
+    if periodic == "high":
+        while True:
+            e = -(-n // m) - 1
+            l = n - e * m
+            if m - l >= kh and l >= kh:
+                return m, e, l
+            m += 1
+    need_pad = 2 * kh if periodic == "two" else kh
+    while (p - 1) * m < n:
+        l = n - (p - 1) * m
+        if p * m - n >= need_pad and l >= kh:
+            return m, p - 1, l
+        m += 1
+    return None
+
+
+def _axis_mode(lo: BCType, hi: BCType, compat: bool) -> str:
+    """The wrap mode of an axis from its two sides; compat periodic never
+    wraps (stale zeros), so it counts as ``"none"``."""
+    per = BCType.PERIODIC
+    if compat or (lo != per and hi != per):
+        return "none"
+    if lo == per and hi == per:
+        return "two"
+    return "low" if lo == per else "high"
+
+
+def _send(part: torch.Tensor, mesh: Mesh, src: Tuple[int, int],
+          dst: Tuple[int, int], axis: str) -> torch.Tensor:
+    """A wrap-head payload from tile ``src`` to tile ``dst`` (y, x), on the
+    destination's device with :func:`_pshift`'s peer-copy ordering;
+    ``mesh.copies[(axis, "head")]`` counts those between two tiles."""
+    if src != dst:
+        mesh.copies[(axis, "head")] += 1
+    return part.to(mesh.devices[dst[0]][dst[1]], non_blocking=True)
+
+
+def build_carrier_slab_advance(cfg: SimConfig, mesh: Mesh, dt: float):
+    """``advance(chunk)`` for a grid the mesh does not divide, with one K5
+    launch per tile and pass: the port of JAX halo.py:611-944.
+
+    The field lies in a zero-padded CARRIER of mesh-uniform (my, mx) tiles
+    (:func:`_carrier_axis_plan` per axis), the pad at the high end.  Along
+    each axis the edge tile ``e`` holds the true high edge at tile-local
+    extent ``l``; tiles beyond it are all pad.  Each tile's K5 flags are
+    ``(x == 0, x == e_x, y == 0, y == e_y, ly, lx)``: the kernel re-pins
+    the BC at the true edges every sub-step, so the pad evolves as inert
+    garbage that never reaches the true extent.
+
+    Periodic sides have no fixup; each pass stages true wrap data into the
+    pad (``KH`` lines, the pass size), as in the JAX package:
+
+    * tail-mirror (``"two"``/``"low"`` axes): on the last tile, pad lines
+      [m-KH, m) := true lines [l-KH, l), a local copy before round 1, so
+      the cyclic exchange delivers true wrap data to tile 0's low halo;
+    * wrap-head (``"two"``/``"high"``): on the edge tile, pad lines
+      [l, l+KH) := the first KH global lines, sent from tile 0.  The x head
+      is patched after round 1's x exchange; the y head ships tile 0's
+      x-extended first rows (``gl|c|gr``), patched into the tile and into
+      the xhalo rows [ly, ly+KH), so torus corners route through the
+      tail-mirror and ``gl``.
+
+    Round 1 exchanges x faces, round 2 the x-extended rows (the port's
+    compact slab layout).  Where the weights' |sum| exceeds 1 + 1e-12 the
+    pads are zeroed each pass, so garbage cannot overflow.  A remainder
+    pass runs fewer sub-steps on the same KH-deep staging.
+
+    Staging writes the pad lines of the carrier tiles in place and nothing
+    else; every kernel writes a fresh tile.  So the true extent of a
+    carrier held for a snapshot stays valid while the next span runs, as
+    long as the copier reads only :attr:`advance.extract`'s views.  The
+    exchange payloads are taken (``cat`` copies) before any in-place
+    patch, so the values equal the JAX package's.
+
+    What the JAX design keeps as TPU answers, and the port drops: the
+    128-column and 8/16-row alignment (the port plans with ``align=1``,
+    so a single-tile axis is never padded), the BY-friendliness expansion and
+    ``CLIMATE_SIM_CARRIER_EXPAND``, the ``my < 32 or mx < 128`` floor, and
+    the bf16-only KH = 16.  ``KH`` is ``pick_steps_per_pass`` of the
+    unpadded ``ceil(n/p)`` tile, fixed once.
+
+    Returns None when an axis cannot stage, or when the carrier would hold
+    more than twice the grid's points; the driver then takes
+    :func:`build_padded_advance`.  The advance carries ``embed`` (global
+    field -> carrier tiles), ``extract`` (carrier tiles -> grid of views of
+    the true extent, all-pad tiles dropped), ``carrier_shape``,
+    ``flags6(y, x)`` (tile (y, x)'s K5 flags), ``pass_count``,
+    ``steps_per_pass`` (KH), ``kernel = "K5"`` and ``path = "carrier"``.
+    """
+    px, py = mesh.shape["x"], mesh.shape["y"]
+    nx, ny = cfg.nx, cfg.ny
+    compat = cfg.strict_reference_compat
+    mode_x = _axis_mode(cfg.bc.left, cfg.bc.right, compat)
+    mode_y = _axis_mode(cfg.bc.bottom, cfg.bc.top, compat)
+    tile_cfg = dataclasses.replace(cfg, nx=-(-nx // px), ny=-(-ny // py))
+    KH = pick_steps_per_pass(tile_cfg, cfg.out_every or 8)
+    plan_x = _carrier_axis_plan(nx, px, mode_x, KH)
+    plan_y = _carrier_axis_plan(ny, py, mode_y, KH)
+    if plan_x is None or plan_y is None:
+        return None
+    mx, e_x, lx = plan_x
+    my, e_y, ly = plan_y
+    if my * py * mx * px > 2 * ny * nx:
+        return None
+    gamma = sum(abs(w) for w in _stencil_weights(dt, cfg.D, cfg.vx, cfg.vy, cfg.dx, cfg.dy))
+    damp_pads = gamma > 1.0 + 1e-12
+    wrap_x, wrap_y = axis_wrap_flags(cfg)
+    # The tail-mirror feeds the low side's ghost (through the cyclic
+    # exchange), the wrap-head the high side's; an axis with no pad wraps
+    # through the exchange alone.
+    tail_y = mode_y in ("two", "low") and ly != my
+    head_y = mode_y in ("two", "high") and ly != my
+    tail_x = mode_x in ("two", "low") and lx != mx
+    head_x = mode_x in ("two", "high") and lx != mx
+
+    def extent(i: int, e: int, m: int, l: int) -> int:
+        return m if i < e else (l if i == e else 0)
+
+    def flags6(y: int, x: int):
+        return (int(x == 0), int(x == e_x), int(y == 0), int(y == e_y), ly, lx)
+
+    def tile_pass(c: Tiles, kk: int) -> Tiles:
+        if damp_pads:
+            for y in range(py):
+                for x in range(px):
+                    c[y][x][extent(y, e_y, my, ly):].zero_()
+                    c[y][x][:, extent(x, e_x, mx, lx):].zero_()
+        if tail_y:
+            for t in c[py - 1]:
+                t[my - KH:].copy_(t[ly - KH:ly])
+        if tail_x:
+            for row in c:
+                row[px - 1][:, mx - KH:].copy_(row[px - 1][:, lx - KH:lx])
+        # Round 1: x faces, taken into a fresh xhalo before the x head
+        # patches the edge tiles.
+        gl = _pshift(_tilewise(mesh, lambda y, x: c[y][x][:, -KH:]), mesh, "x", +1, wrap_x)
+        gr = _pshift(_tilewise(mesh, lambda y, x: c[y][x][:, :KH]), mesh, "x", -1, wrap_x)
+        xhalo = _tilewise(mesh, lambda y, x: torch.cat([gl[y][x], gr[y][x]], dim=1))
+        if head_x:
+            for y in range(py):
+                head = _send(c[y][0][:, :KH], mesh, (y, 0), (y, e_x), "x")
+                c[y][e_x][:, lx:lx + KH].copy_(head)
+        # Round 2: the x-extended rows.
+        def rows(sl: slice) -> Tiles:
+            return _tilewise(mesh, lambda y, x: torch.cat(
+                [xhalo[y][x][sl, :KH], c[y][x][sl], xhalo[y][x][sl, KH:]], dim=1))
+
+        bottom, top = rows(slice(None, KH)), rows(slice(-KH, None))
+        gb = _pshift(top, mesh, "y", +1, wrap_y)
+        gt = _pshift(bottom, mesh, "y", -1, wrap_y)
+        yhalo = _tilewise(mesh, lambda y, x: torch.cat([gb[y][x], gt[y][x]], dim=0))
+        if head_y:
+            for x in range(px):
+                head = _send(bottom[0][x], mesh, (0, x), (e_y, x), "y")
+                c[e_y][x][ly:ly + KH].copy_(head[:, KH:KH + mx])
+                xh = xhalo[e_y][x]
+                xh[ly:ly + KH, :KH].copy_(head[:, :KH])
+                xh[ly:ly + KH, KH:].copy_(head[:, KH + mx:])
+        return _tilewise(mesh, lambda y, x: carrier_tile_slab_multistep(
+            c[y][x], xhalo[y][x], yhalo[y][x], flags6(y, x), cfg, dt, kk, khalo=KH))
+
+    def embed(u: torch.Tensor) -> Tiles:
+        def tile(y: int, x: int) -> torch.Tensor:
+            t = torch.zeros((my, mx), dtype=u.dtype, device=mesh.devices[y][x])
+            h, w = extent(y, e_y, my, ly), extent(x, e_x, mx, lx)
+            if h and w:
+                t[:h, :w].copy_(u[y * my:y * my + h, x * mx:x * mx + w])
+            return t
+
+        return _tilewise(mesh, tile)
+
+    def extract(c: Tiles) -> Tiles:
+        return [[c[y][x][:extent(y, e_y, my, ly), :extent(x, e_x, mx, lx)]
+                 for x in range(e_x + 1)] for y in range(e_y + 1)]
+
+    advance = _make_chunk_advance(tile_pass, KH)
+    advance.embed, advance.extract = embed, extract
+    advance.carrier_shape = (my * py, mx * px)
+    advance.flags6 = flags6
+    advance.kernel, advance.path = "K5", "carrier"
     return advance

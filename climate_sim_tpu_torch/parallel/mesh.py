@@ -13,7 +13,12 @@ out in list order; the JAX package's TPU-topology layout
 
 The field on a mesh is a (py, px) grid (a list of rows) of contiguous tile
 tensors, tile [y][x] on ``mesh.devices[y][x]``: :func:`shard_field` and
-:func:`gather_field` convert between it and the global (ny, nx) tensor.
+:func:`gather_field` convert between it and the global (ny, nx) tensor.  A
+grid the mesh does not divide splits as the reference splits it
+(:func:`split_sizes`, decomp.cpp:29-30): the last tile of an axis takes the
+remainder.  Tiles of one mesh row share a height and tiles of one mesh
+column a width, so the exchanges of :mod:`.halo` take such remainder tiles
+unchanged.
 """
 
 from __future__ import annotations
@@ -51,8 +56,7 @@ def choose_mesh_shape(
     Honors explicit requests; otherwise scans factorizations from
     near-square outward and returns the first whose shards divide the grid
     evenly.  Falls back to the near-square factorization even if indivisible
-    (the JAX package then takes its carrier or GSPMD path; the port's
-    driver raises, those paths not being ported).
+    (the driver then takes its carrier or remainder-tile path).
     """
     if req_x is not None and req_y is not None:
         if req_x * req_y != n_devices:
@@ -133,23 +137,32 @@ def divisible(mesh: Mesh, nx: int, ny: int) -> bool:
     return nx % px == 0 and ny % py == 0
 
 
-def tile_shape(mesh: Mesh, nx: int, ny: int) -> Tuple[int, int]:
-    """(my, mx) of each tile of a divisible (ny, nx) grid."""
-    if not divisible(mesh, nx, ny):
-        raise ValueError(
-            f"grid {nx}x{ny} is not divisible by the"
-            f" {mesh.shape['x']}x{mesh.shape['y']} mesh"
-        )
-    return ny // mesh.shape["y"], nx // mesh.shape["x"]
+def split_sizes(n: int, p: int) -> List[int]:
+    """The extents of ``p`` tiles along an axis of ``n`` lines, the
+    reference's decomposition (decomp.cpp:29-30): ``n // p`` each, the last
+    tile ``n % p`` more.  Raises when a tile would be empty."""
+    if n < p:
+        raise ValueError(f"{n} lines cannot be split over {p} tiles")
+    base = n // p
+    return [base] * (p - 1) + [base + n % p]
+
+
+def _offsets(sizes: Sequence[int]) -> List[int]:
+    out = [0]
+    for s in sizes:
+        out.append(out[-1] + s)
+    return out
 
 
 def shard_field(u: torch.Tensor, mesh: Mesh) -> Tiles:
     """The global (ny, nx) field as the mesh's tile grid: tile (y, x) is a
-    contiguous copy of its block on ``mesh.devices[y][x]``."""
-    my, mx = tile_shape(mesh, u.shape[1], u.shape[0])
+    contiguous copy of its block on ``mesh.devices[y][x]``, the blocks cut
+    by :func:`split_sizes`."""
+    ys = _offsets(split_sizes(u.shape[0], mesh.shape["y"]))
+    xs = _offsets(split_sizes(u.shape[1], mesh.shape["x"]))
     return [
         [
-            u[y * my:(y + 1) * my, x * mx:(x + 1) * mx]
+            u[ys[y]:ys[y + 1], xs[x]:xs[x + 1]]
             .to(mesh.devices[y][x]).contiguous()
             for x in range(mesh.shape["x"])
         ]
@@ -157,10 +170,13 @@ def shard_field(u: torch.Tensor, mesh: Mesh) -> Tiles:
     ]
 
 
-def gather_field(tiles: Tiles, mesh: Mesh) -> torch.Tensor:
-    """The inverse of :func:`shard_field`: the global field on the device
-    of tile (0, 0)."""
-    if len(tiles) != mesh.shape["y"] or any(len(r) != mesh.shape["x"] for r in tiles):
+def gather_field(tiles: Tiles, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The inverse of :func:`shard_field`, for any grid of tiles whose rows
+    share heights and columns widths: the global field on the device of
+    tile (0, 0).  With ``mesh``, the grid must match its shape."""
+    if mesh is not None and (
+        len(tiles) != mesh.shape["y"] or any(len(r) != mesh.shape["x"] for r in tiles)
+    ):
         raise ValueError(
             f"tile grid {len(tiles)}x{len(tiles[0]) if tiles else 0} does not"
             f" match the mesh (y={mesh.shape['y']}, x={mesh.shape['x']})"

@@ -12,15 +12,31 @@ torch-ops steps on the plain path).  On CUDA the launches are asynchronous,
 so a snapshot is taken by launching the next span first and then copying the
 held field to the host on a side stream; every kernel writes a fresh output
 tensor, never its input, so the held snapshot stays valid while the span
-runs.
+runs (the carrier path's staging writes pad lines of its input in place,
+and the copier reads only the true extent).
 
 Devices, as in the JAX package (driver.py:281-287): the caller names a list
 of torch devices (a device may repeat), ``max_devices`` keeps the first N,
 and a mesh of tiles exists iff ``mesh.enable`` and more than one device
-remains.  On a mesh the field is a grid of tiles (:mod:`..parallel`) and
-runs the slab path (K4), or the overlap path (K3) with ``halo_overlap:
-true``; a grid the mesh does not divide raises (its carrier path is not
-ported), as does a multi-process (``distributed``) request.
+remains.  On a mesh the field is a grid of tiles (:mod:`..parallel`).  A
+grid the mesh divides runs the slab path (K4), or the overlap path (K3)
+with ``halo_overlap: true``.  A grid it does not divide takes the JAX
+routing (driver.py:301-324, :358-404): with a kernel selected, the carrier
+path (K5), whose carrier tiles are the loop state while everything the
+driver reads (IC min/max, ``diag:`` lines, ``debug_nans``, snapshots,
+``RunResult.u``) sees only the true (ny, nx) extent; else, or when the
+carrier declines (with a ``[warn]``), the per-step path on the reference's
+remainder tiles.  A multi-process (``distributed``) request raises.
+
+Kept apart from the JAX routing on purpose, because each JAX branch answers
+a TPU layout limit that the port's kernels do not have:
+
+* a single device runs K1 for every shape (the JAX 1x1-carrier dispatch,
+  driver.py:405-430, exists because the TPU's fused layout declines
+  misaligned widths);
+* a grid the mesh divides keeps K4 even when its tiles are misaligned
+  (JAX driver.py:342-348 prefers the carrier there for the same reason);
+* ``distributed`` still raises: the multi-process driver is not ported.
 """
 
 from __future__ import annotations
@@ -45,6 +61,8 @@ from ..ops.step import (
     select_kernel,
 )
 from ..parallel.halo import (
+    build_carrier_slab_advance,
+    build_padded_advance,
     build_sharded_advance,
     build_sharded_multistep_advance,
     build_sharded_overlap_advance,
@@ -215,12 +233,41 @@ def _path_name(advance, device: torch.device) -> str:
     return f"{path}, {what}" if path else what
 
 
+def _mesh_advance(cfg: SimConfig, mesh, dt: float, device: torch.device):
+    """The advance on a mesh: the divisible-grid paths, else the carrier
+    or the remainder-tile per-step path (JAX driver.py:301-404)."""
+    kernel = select_kernel(cfg, device)
+    if divisible(mesh, cfg.nx, cfg.ny):
+        if kernel not in KERNEL_VALUES:
+            return build_sharded_advance(cfg, mesh, dt, make_interior_step(cfg, dt))
+        advance = build_sharded_overlap_advance(cfg, mesh, dt) if cfg.halo_overlap else None
+        return advance or build_sharded_multistep_advance(cfg, mesh, dt)
+    grid = f"grid {cfg.nx}x{cfg.ny}"
+    on = f"on the {mesh.shape['x']}x{mesh.shape['y']} mesh"
+    if kernel in KERNEL_VALUES:
+        advance = build_carrier_slab_advance(cfg, mesh, dt)
+        if advance is not None:
+            ncy, ncx = advance.carrier_shape
+            _log(f"[info] {grid} has no uniform tiles {on}; running the CARRIER"
+                 f" path ({ncx}x{ncy} carrier, true edges at runtime flags)")
+            return advance
+        _warn(f"[warn] kernel={kernel} requested but the {grid} fits no carrier"
+              f" layout {on}: downgrading to the per-step remainder-tile path"
+              " (one K2 launch per tile and step) -- benchmark numbers from this"
+              " run are NOT carrier-path numbers")
+    else:
+        _log(f"[info] {grid} has no uniform tiles {on}; running the per-step"
+             " remainder-tile path (torch ops)")
+    return build_padded_advance(dataclasses.replace(cfg, kernel=kernel), mesh, dt)
+
+
 def prepare(cfg: SimConfig, devices=None):
     """Resolve the devices, mesh, dtype, dt clamp, advance and IC.
 
     Returns (u0, advance, mesh, dt, clamped).  ``advance(k)`` advances the
     field k steps: the global tensor on one device (``mesh`` None), or the
-    mesh's tile grid.
+    mesh's tile grid (carrier tiles on the carrier path, whose
+    ``advance.extract`` gives the true extent).
     """
     _check_single_process(cfg)
     devs = resolve_devices(devices)
@@ -242,22 +289,8 @@ def prepare(cfg: SimConfig, devices=None):
     cfg = resolve_auto_policies(cfg)
     if mesh is None:
         advance = build_single_device_advance(cfg, dt, devs[0])
-    elif not divisible(mesh, cfg.nx, cfg.ny):
-        raise NotImplementedError(
-            f"grid {cfg.nx}x{cfg.ny} is not divisible by the"
-            f" {mesh.shape['x']}x{mesh.shape['y']} mesh: the carrier path"
-            " (K5) and the padded path for such grids are not ported to the"
-            " PyTorch package yet"
-        )
     else:
-        advance = None
-        if select_kernel(cfg, devs[0]) in KERNEL_VALUES:
-            if cfg.halo_overlap:
-                advance = build_sharded_overlap_advance(cfg, mesh, dt)
-            if advance is None:
-                advance = build_sharded_multistep_advance(cfg, mesh, dt)
-        else:
-            advance = build_sharded_advance(cfg, mesh, dt, make_interior_step(cfg, dt))
+        advance = _mesh_advance(cfg, mesh, dt, devs[0])
     if cfg.precision == "bf16":
         # bf16 storage mode rounds once per pass of the advance actually
         # chosen: once per k-step kernel pass, once per step on the plain
@@ -285,7 +318,9 @@ def prepare(cfg: SimConfig, devices=None):
             " (the reference's clamp envelope does not cover this case)"
         )
     u0 = apply_initial_condition(cfg, dtype, devs[0]).contiguous()
-    if mesh is not None:
+    if hasattr(advance, "embed"):
+        u0 = advance.embed(u0)
+    elif mesh is not None:
         u0 = shard_field(u0, mesh)
     return u0, advance, mesh, dt, clamped
 
@@ -360,9 +395,13 @@ def run_simulation(
     )
     _log(f"  device: {names}  path: {_path_name(advance, device)}")
 
+    # The carrier path's loop state is its carrier tiles; everything read
+    # below sees the true extent only.
+    view = getattr(advance, "extract", None) or (lambda x: x)
+
     # IC sanity log (a 4-scalar fetch); also surfaces a bad IC before the
     # snapshot file is created.
-    ic_stats = _field_stats(u).to("cpu", torch.float64).numpy()
+    ic_stats = _field_stats(view(u)).to("cpu", torch.float64).numpy()
     _log(f"IC min/max: {ic_stats[0]:g} / {ic_stats[1]:g}")
 
     copier = _HostCopier(used)
@@ -401,7 +440,7 @@ def run_simulation(
         t0 = time.perf_counter()
         for k in span_lengths(cfg):
             if n % cfg.out_every == 0 and writer is not None:
-                u_snap, ready = u, copier.mark()
+                u_snap, ready = view(u), copier.mark()
                 u = dispatch_span(u, k)  # launch the next span before the copy
                 writer.write(copier.fetch(u_snap, ready))
                 del u_snap
@@ -410,9 +449,9 @@ def run_simulation(
                 u = dispatch_span(u, k)
             if cfg.diagnostics_every and (n // cfg.out_every) % max(1, cfg.diagnostics_every) == 0:
                 # Reductions launch now and are fetched after the timed loop.
-                diag_pending.append((n + k, _field_stats(u)))
+                diag_pending.append((n + k, _field_stats(view(u))))
             if cfg.debug_nans and any(
-                bool(torch.isnan(t).any()) for row in _tiles(u) for t in row
+                bool(torch.isnan(t).any()) for row in _tiles(view(u)) for t in row
             ):
                 raise FloatingPointError(f"NaN in the field after step {n + k}")
             n += k
@@ -428,7 +467,7 @@ def run_simulation(
             _log(f"diag: step={step} min={mn:.6g} max={mx:.6g} mean={mean:.6g} l2={l2:.6g}")
 
         if cfg.write_final and writer is not None:
-            writer.write(copier.fetch(u, copier.mark()))
+            writer.write(copier.fetch(view(u), copier.mark()))
             snapshots += 1
     finally:
         if writer is not None:
@@ -444,7 +483,7 @@ def run_simulation(
          f"{pts / 1e6 / len(used):.1f} Mpoint/s/chip")
 
     return RunResult(
-        u=gather_field(u, mesh) if mesh is not None else u,
+        u=gather_field(view(u)) if mesh is not None else u,
         total_time=total,
         avg_step_time=avg_step,
         steps=cfg.steps,

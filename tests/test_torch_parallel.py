@@ -109,9 +109,12 @@ def test_from_reference_sharded_round_trips_a_jax_sharded_field(px, py):
         np.testing.assert_array_equal(tiles[y][x].numpy(), np.asarray(shard.data))
         assert tiles[y][x].is_contiguous()
     np.testing.assert_array_equal(tmesh.gather_field(tiles, tm).numpy(), np.asarray(u))
-    if px * py > 1:
-        with pytest.raises(ValueError, match="not divisible"):
-            tmesh.shard_field(torch.zeros(ny + (py > 1), nx + (px > 1)), tm)
+    # An indivisible field splits into the reference's remainder tiles
+    # (decomp.cpp:29-30) and gathers back exactly.
+    v = torch.from_numpy(field(ny + (py > 1), nx + (px > 1)))
+    rem = tmesh.shard_field(v, tm)
+    assert rem[-1][-1].shape == (ny // py + (py > 1), nx // px + (px > 1))
+    torch.testing.assert_close(tmesh.gather_field(rem, tm), v, rtol=0, atol=0)
 
 
 # --------------------------------------------------------------- exchange
@@ -373,10 +376,27 @@ def test_run_simulation_on_a_mesh_matches_jax(tmp_path, capsys, case):
 
 
 def test_indivisible_grid_on_a_mesh_raises():
+    """On a mesh, an indivisible grid raises only for a multi-process
+    request (the multi-process driver is not ported)."""
     # No factor pair of 4 divides 33x33, so the mesh is the near-square 2x2.
-    cfg = tconfig.merged_config(None, ["--nx=33", "--ny=33", "--kernel=pallas"])
-    with pytest.raises(NotImplementedError, match="carrier"):
+    cfg = tconfig.merged_config(None, ["--nx=33", "--ny=33", "--kernel=pallas",
+                                       "--distributed=true"])
+    with pytest.raises(NotImplementedError, match="multi-process"):
         tdriver.run_simulation(cfg, ["cpu"] * 4, write_output=False)
+
+
+def test_indivisible_grid_on_a_mesh_runs_the_carrier(capsys):
+    """The same grid without ``distributed`` runs the carrier path (K5's
+    plain version) and matches the JAX package's run on a 2x2 mesh
+    (tests/test_torch_carrier.py covers the routes)."""
+    args = ["--nx=33", "--ny=33", "--steps=5", "--precision=f64"]
+    res = tdriver.run_simulation(tconfig.merged_config(None, args + ["--kernel=pallas"]),
+                                 ["cpu"] * 4, write_output=False)
+    assert "CARRIER path (34x34 carrier" in capsys.readouterr().out
+    assert res.mesh_shape == (2, 2) and res.u.shape == (33, 33)
+    jres = jrun(jconfig.merged_config(None, args + ["--kernel=jnp"]),
+                devices=jax.devices()[:4], write_output=False)
+    np.testing.assert_allclose(res.u.numpy(), np.asarray(jres.u), rtol=0, atol=1e-12)
 
 
 def test_mesh_run_reports_per_distinct_device_throughput(capsys):
