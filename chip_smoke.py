@@ -5,17 +5,23 @@
 Phases, each of which raises on failure (nothing is caught):
 
 1. the device: its name, and its name and power limit from nvidia-smi;
-2. the build of K1-K5 (csrc/*.cu) with nvcc, or a cache hit;
-3. K1 against its plain PyTorch version on the card, over shapes, BC
-   classes, steps per pass and dtypes;
+2. the build of K1-K5 (csrc/*.cu) with nvcc, or a cache hit, with each
+   kernel instantiation's registers and spills (a spill in float32 or
+   bfloat16 fails);
+3. K1 against its plain PyTorch version on the card, over shapes (the
+   streaming core's edges among them: a grid narrower than one band, nx
+   one more than a band's output width, ny not a multiple of the segment
+   height), BC classes, steps per pass (1 to 32) and dtypes;
 4. the main path through the port's own CLI: configs/bench_4096.yaml at
    4096² and configs/dev.yaml at 512², each checked for exit code, the
    timing line, a K1 launch count equal to the pass schedule, snapshots that
    read back, and a final field that agrees with the plain per-step path
    run on the same card;
-5. the time of one K1 pass and of its plain version at 4096², f32;
+5. the time of one K1 pass (from a CUDA graph replay) and of its plain
+   version at 4096², in f32, bf16 and f64;
 6. K2, K3 and K4 against their plain versions on the card, over tile
-   shapes (a 2048² tile included), BC classes, dtypes, steps per pass and
+   shapes (a 2048² tile, the new shapes of phase 3 and K3's 8-column and
+   8-row band regions included), BC classes, dtypes, steps per pass and
    the edge flags of every tile of 1x1, 2x2, 1x4 and 4x1 meshes, and K2 on
    the padded remainder tiles of phase 8; then K5 over the same shapes
    with several true extents (the full tile and l == k among them) and the
@@ -36,11 +42,16 @@ Phases, each of which raises on failure (nothing is caught):
    held against the slab path and against K1; the per-step path on
    remainder tiles at 4001² on 2x2 (torch ops, and K2), 1000 steps,
    against K1;
-9. K2-K5 per pass beside their plain versions (K5 on a 2009x2001 carrier
+9. K2-K5 per pass (launches replayed from a CUDA graph, so the card's
+   time and not the wrappers' host time is measured) beside their plain
+   versions (K5 on a 2009x2001 carrier
    tile, in turns with K4 on 2048²; K2 also beside ``conv2d`` with its five
    weights as a 3x3 cross), the rates of the 2x2 slab and overlap paths at
-   4096² and of the carrier path at 4001² on one card beside K1's, and a
-   profiled 1000-step carrier run through the driver.
+   4096² and of the carrier path at 4001² on one card beside K1's, and
+   profiled 1000-step runs through the driver, output off: the
+   single-device main path (K1) and the carrier path (K5), each with its
+   kernel time, launches, throughput line and busy share of the
+   unprofiled wall.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -77,8 +88,11 @@ BC_CLASSES = {
     "both_axes": ((P, D, P, N), False),
     "compat": ((P, P, P, P), True),
 }
-SHAPES = [(128, 64), (120, 96), (4096, 4096)]  # (nx, ny)
-STEPS_PER_PASS = [1, 3, 8]
+# (nx, ny); the streaming core's edges: a grid narrower than one band
+# (20 wide), nx one more than a band's 240 output columns at k = 8 with ny
+# not a multiple of the segment height (333 = 10 x 32 + 13).
+SHAPES = [(128, 64), (120, 96), (20, 300), (241, 333), (4096, 4096)]
+STEPS_PER_PASS = [1, 3, 8, 16, 32]
 # K1 vs its plain version: FMA contraction and summation order differ, so
 # f32 and f64 agree to round-off; bf16 rounds the two f32 results once
 # each, so they agree to one bf16 ulp of the value (<= |value| * 2^-7).
@@ -96,7 +110,10 @@ MAIN_PATH_ATOL = 1e-4
 # 512² dev runs, k = 4 against 8) only FMA contraction and rounding order
 # differ, well inside MAIN_PATH_ATOL.
 SHARDED_ATOL = MAIN_PATH_ATOL
-TILE_SHAPES = [(128, 64), (120, 96), (2048, 2048)]  # (mx, my)
+# (mx, my); the new shapes as SHAPES, and K3's k-column and k-row band
+# regions of a 2048² tile (K4/K5 take only k <= min(mx, my)).
+TILE_SHAPES = [(128, 64), (120, 96), (20, 300), (241, 333), (8, 2048), (2048, 8),
+               (2048, 2048)]
 MESH_SHAPES = [(1, 1), (2, 2), (1, 4), (4, 1)]  # (px, py)
 KERNEL_NAMES = ("K1", "K2", "K3", "K4", "K5")
 TIMING_TILE = 2048  # the tile of a 2x2 mesh at 4096²
@@ -119,9 +136,11 @@ CARRIER_RUNS = (
 # class besides their run's own.
 SMALL_TILE = 1 << 19
 # The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): device
-# memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s.
+# memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s.  bf16 is
+# storage only here: its sub-steps run in float32.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+F64_FLOP_PER_S = 34e12  # float64 outside the tensor cores (same data sheet)
 FLOPS_PER_CELL_STEP = 9  # five products, four sums
 
 
@@ -140,7 +159,36 @@ def phase_device(torch):
     return name, smi
 
 
+_DTYPES = {"ff": "float32", "dd": "float64", "13__nv_bfloat16f": "bfloat16"}
+_SOURCES = {"WrapSource": "K1", "RegionSource": "K2/K3", "SlabSource": "K4/K5"}
+
+
+def kernel_resources(log):
+    """Per kernel instantiation in ptxas' -v output: (kernels, dtype, level
+    count, registers, spill store bytes, spill load bytes)."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            k = re.search(r"band_kernelI(13__nv_bfloat16f|ff|dd)Li(\d+)E.*?"
+                          r"(WrapSource|RegionSource|SlabSource)", name)
+            if k:
+                out.append((_SOURCES[k.group(3)], _DTYPES[k.group(1)], int(k.group(2)),
+                            int(m.group(1)), *spills))
+            name = None
+    return out
+
+
 def phase_build():
+    """Build (or find) the kernels' library; print each instantiation's
+    registers and spills, and fail on a spill in float32 or bfloat16."""
     from climate_sim_tpu_torch.ops._build import load_library
 
     t0 = time.perf_counter()
@@ -148,9 +196,15 @@ def phase_build():
     how = f"built in {kl.seconds:.1f} s" if kl.built else "cache hit"
     print(f"[build] {os.path.relpath(kl.path, HERE)}: {how}"
           f" ({time.perf_counter() - t0:.1f} s with load)")
-    for line in kl.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    res = kernel_resources(kl.log)
+    for kern, dtype, levels, regs, st, ld in sorted(res):
+        spill = f"spills {st} B stored, {ld} B loaded" if st or ld else "no spills"
+        print(f"[build] {kern} {dtype} {levels} levels: {regs} registers, {spill}")
+    if kl.built and not res:
+        fail("no kernel resources in the build log")
+    bad = [r for r in res if r[1] != "float64" and (r[4] or r[5])]
+    if bad:
+        fail(f"spills in float32/bfloat16 kernels: {bad}")
 
 
 def make_cfg(nx, ny, bc_class, **kw):
@@ -299,45 +353,37 @@ def phase_main_path(torch, device, label, cfg_path, extra, tmp):
 
 
 def phase_timing(torch, device):
-    """Per-pass time of K1 and of its plain version at 4096², f32, k = 8,
-    from CUDA events after warm-up, measured in turns: plain, K1, K1, plain."""
+    """Per-pass time of K1 and of its plain version at 4096², k = 8, bench
+    BCs, in f32, bf16 and f64, measured in turns per dtype: plain, K1, K1,
+    plain (K1 by CUDA graph replay, the plain version, which synchronises
+    with the host, by events).  Returns {dtype: (K1 ms, plain ms,
+    bound)}."""
     from climate_sim_tpu_torch.ops import cuda_stencil as cs
 
     nx = ny = BENCH_GRID
     cfg = make_cfg(nx, ny, "bench")
-    u = edge_parked(torch, ny, nx, seed=7, device=device).to(torch.float32)
+    base = edge_parked(torch, ny, nx, seed=7, device=device)
     k = 8
-
-    def per_pass_ms(fn, reps):
-        fn(u)
-        torch.cuda.synchronize(device)
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn(u)
-        stop.record()
-        torch.cuda.synchronize(device)
-        return start.elapsed_time(stop) / reps
-
-    def kernel(x):
-        return cs.multistep_kernel_step(x, cfg, cfg.dt, k)
-
-    def plain(x):
-        return cs.multistep_pass_plain(x, cfg, cfg.dt, k)
-
-    p1 = per_pass_ms(plain, 5)
-    k1 = per_pass_ms(kernel, 50)
-    k2 = per_pass_ms(kernel, 50)
-    p2 = per_pass_ms(plain, 5)
-    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
     pts = nx * ny * k
-    print(f"[timing] {nx}x{ny} f32, k={k} steps per pass, bench BCs:"
-          f" K1 {k1:.4f} / {k2:.4f} ms per pass, plain {p1:.4f} / {p2:.4f} ms")
-    b = bound(2 * nbytes(u), FLOPS_PER_CELL_STEP * pts)
-    print(f"[timing] K1 {pts / (k_ms * 1e6):.1f} Gpoint/s,"
-          f" plain {pts / (p_ms * 1e6):.1f} Gpoint/s; bound {b[0]:.4f} ms ({b[1]}),"
-          f" {b[0] / k_ms:.1%} of it reached")
-    return k_ms, p_ms, b
+    out = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16),
+                        ("float64", torch.float64)):
+        u = base.to(dtype)
+        ms = in_turns(torch, device,
+                      {"K1": lambda: cs.multistep_kernel_step(u, cfg, cfg.dt, k),
+                       "plain": lambda: cs.multistep_pass_plain(u, cfg, cfg.dt, k)},
+                      ("plain", "K1", "K1", "plain"), {"K1": 60, "plain": 5},
+                      graphed=("K1",))
+        k_ms, p_ms = sum(ms["K1"]) / 2, sum(ms["plain"]) / 2
+        b = bound(2 * nbytes(u), FLOPS_PER_CELL_STEP * pts,
+                  F64_FLOP_PER_S if dtype == torch.float64 else F32_FLOP_PER_S)
+        out[name] = (k_ms, p_ms, b)
+        print(f"[timing] {nx}x{ny} {name}, k={k} steps per pass, bench BCs:"
+              f" K1 {' / '.join(f'{t:.4f}' for t in ms['K1'])} ms per pass, plain"
+              f" {' / '.join(f'{t:.4f}' for t in ms['plain'])} ms;"
+              f" K1 {pts / (k_ms * 1e6):.1f} Gpoint/s, plain {pts / (p_ms * 1e6):.1f};"
+              f" bound {b[0]:.4f} ms ({b[1]}), {b[0] / k_ms:.1%} of it reached")
+    return out
 
 
 def counters():
@@ -428,7 +474,7 @@ def phase_tile_kernels_vs_plain(torch, device):
                         name, e = compare(torch, f"K3 {label}", got, want, dtype)
                         worst["K3"][name] = max(worst["K3"][name], e)
                         cases["K3"] += 1
-                        if flags is None:
+                        if flags is None or k > min(mx, my):  # K4: kh <= the tile
                             continue
                         got = sh.sharded_tile_slab_multistep(tile, xh, yh, flags, cfg,
                                                              cfg.dt, k)
@@ -468,8 +514,8 @@ def phase_tile_kernels_vs_plain(torch, device):
         errs = ", ".join(f"{d} {e:.3g}" for d, e in worst[n].items())
         print(f"[tile-kernels-vs-plain] {n}: {cases[n]} cases ok; max abs err {errs}")
     print(f"[tile-kernels-vs-plain] {len(TILE_SHAPES)} tile shapes x {len(BC_CLASSES)}"
-          f" BC classes x 3 dtypes; K3/K4 k in {STEPS_PER_PASS} x {len(flag_sets)}"
-          " mesh-tile flag sets (K3 also unflagged)")
+          f" BC classes x 3 dtypes; K3/K4 k in {STEPS_PER_PASS} (K4: k <= the tile) x"
+          f" {len(flag_sets)} mesh-tile flag sets (K3 also unflagged)")
     return cases, worst
 
 
@@ -536,6 +582,8 @@ def phase_carrier_kernel_vs_plain(torch, device):
             cfg = make_cfg(mx, my, bc_class)
             for dtype in (torch.float32, torch.float64, torch.bfloat16):
                 for k in STEPS_PER_PASS:
+                    if k > min(mx, my):  # K5 takes kh <= the tile
+                        continue
                     w = edge_parked(torch, my + 2 * k, mx + 2 * k, seed=mx + 3 * k,
                                     device=device).to(dtype)
                     tile, xh, yh = slabs(torch, w, k)
@@ -544,8 +592,8 @@ def phase_carrier_kernel_vs_plain(torch, device):
                             check("unit", tile, xh, yh, (*flags, ly, lx), cfg, cfg.dt, k, k,
                                   f"{mx}x{my} {bc_class} {dtype}")
     print(f"[tile-kernels-vs-plain] K5: {cases['unit']} unit cases ok ({len(TILE_SHAPES)} tile"
-          f" shapes x {len(BC_CLASSES)} BC classes x 3 dtypes x k in {STEPS_PER_PASS} x 3 true"
-          f" extents x {len(flag_sets)} carrier-tile flag sets)")
+          f" shapes x {len(BC_CLASSES)} BC classes x 3 dtypes x k in {STEPS_PER_PASS}, k <="
+          f" the tile, x 3 true extents x {len(flag_sets)} carrier-tile flag sets)")
 
     for label, cfg_path, extra, mesh_xy in CARRIER_RUNS:
         run_cfg, dt, (my, mx), kh, run_f6, ks = carrier_run_geometry(cfg_path, extra, mesh_xy)
@@ -770,12 +818,37 @@ def events_ms(torch, device, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def bound(nbytes, flops):
+def graph_ms(torch, device, fn, reps):
+    """Mean ms of ``fn()`` over ``reps`` calls captured in one CUDA graph,
+    from CUDA events around a replay after a warm-up replay: the card's
+    time for the launches, without the host's Python between them (a
+    kernel wrapper takes ~0.04 ms of host time a launch, more than K2's
+    device time).  ``fn`` must not synchronise with the host."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize(device)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(stop) / reps
+
+
+def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
     """(least ms the card could take, what sets it): the bytes the function
     must move (each input read once, each output written once) over the
-    memory rate, or its float32 operations over the peak rate."""
+    memory rate, or its operations over the peak rate of their type."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -783,12 +856,15 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def in_turns(torch, device, fns, order, reps):
+def in_turns(torch, device, fns, order, reps, graphed=()):
     """Mean ms per call of each named fn, measured in ``order`` (each name
-    twice, e.g. a, b, b, a); returns {name: [ms, ms]}."""
+    twice, e.g. a, b, b, a), the names in ``graphed`` by CUDA graph replay
+    (:func:`graph_ms`), the rest by events around a loop; returns
+    {name: [ms, ms]}."""
     ms = {name: [] for name in fns}
     for name in order:
-        ms[name].append(events_ms(torch, device, fns[name], reps[name]))
+        timer = graph_ms if name in graphed else events_ms
+        ms[name].append(timer(torch, device, fns[name], reps[name]))
     return ms
 
 
@@ -833,19 +909,21 @@ def phase_tile_timing(torch, device):
         "K4": bound(nbytes(tile, xh, yh, tile), FLOPS_PER_CELL_STEP * k * cells),
         "K5": bound(nbytes(ctile, cxh, cyh, ctile), FLOPS_PER_CELL_STEP * k * cy * cx),
     }
-    # Kernel windows of ~15-20 ms of device time each, so that the card's
-    # clocks settle within a window.
+    # Kernel windows of ~8-15 ms of device time each, so that the card's
+    # clocks settle within a window; kernels (and conv2d) by CUDA graph
+    # replay, the plain versions by events.
     k2 = pairs["K2"][0]
     for name, reps in (("K2", 500), ("K3", 150)):
         kern, plain = pairs[name]
         ms = in_turns(torch, device, {"kernel": kern, "plain": plain},
-                      ("plain", "kernel", "kernel", "plain"), {"kernel": reps, "plain": 5})
+                      ("plain", "kernel", "kernel", "plain"), {"kernel": reps, "plain": 5},
+                      graphed=("kernel",))
         pairs[name] = ms
     ms = in_turns(torch, device,
                   {"K4": pairs["K4"][0], "K5": pairs["K5"][0],
                    "K4 plain": pairs["K4"][1], "K5 plain": pairs["K5"][1]},
                   ("K4 plain", "K5 plain", "K4", "K5", "K5", "K4", "K5 plain", "K4 plain"),
-                  {"K4": 150, "K5": 150, "K4 plain": 5, "K5 plain": 5})
+                  {"K4": 150, "K5": 150, "K4 plain": 5, "K5 plain": 5}, graphed=("K4", "K5"))
     for name in ("K4", "K5"):
         pairs[name] = {"kernel": ms[name], "plain": ms[f"{name} plain"]}
 
@@ -864,7 +942,8 @@ def phase_tile_timing(torch, device):
         if err > ATOL["float32"]:
             fail(f"conv2d vs K2: max abs err {err:.3g}")
         ms = in_turns(torch, device, {"K2": k2, "conv2d": conv},
-                      ("K2", "conv2d", "conv2d", "K2"), {"K2": 500, "conv2d": 500})
+                      ("K2", "conv2d", "conv2d", "K2"), {"K2": 500, "conv2d": 500},
+                      graphed=("K2", "conv2d"))
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     library = {"K2": sum(ms["conv2d"]) / 2}
@@ -916,39 +995,46 @@ def phase_tile_timing(torch, device):
     return times, rates, bounds, library
 
 
-def phase_profile_carrier(torch, device, tmp):
-    """A 1000-step carrier run at 4001² on a 2x2 mesh of one card through
-    the driver, output off, unprofiled and then with ``profile_dir``: the
-    kernel time by name from the trace, and the busy share of the wall."""
+def phase_profile(torch, device, tmp, label, args, n_devices, kernel):
+    """A 1000-step bench_4096 run through the driver with ``args`` on
+    ``[device] * n_devices``, output off, unprofiled and then with
+    ``profile_dir``: the kernel time by name from the trace, ``kernel``'s
+    launches, and the busy share of each wall."""
     from climate_sim_tpu_torch.config import merged_config
     from climate_sim_tpu_torch.runtime import driver
 
-    walls = {}
-    for label in ("unprofiled", "profiled"):
-        args = ["--kernel=pallas", f"--nx={CARRIER_GRID}", f"--ny={CARRIER_GRID}",
-                "--mesh.x=2", "--mesh.y=2", "--output.enable=false"]
-        if label == "profiled":
-            args.append(f"--profile_dir={os.path.join(tmp, 'profile')}")
+    walls, rates = {}, {}
+    prof_dir = os.path.join(tmp, f"profile_{label}".replace(" ", "_"))
+    for how in ("unprofiled", "profiled"):
+        run_args = [*args, "--output.enable=false"]
+        if how == "profiled":
+            run_args.append(f"--profile_dir={prof_dir}")
         buf = io.StringIO()
         reset_counts()
         with contextlib.redirect_stdout(buf):
-            driver.run_simulation(merged_config(BENCH_CFG, args), [device] * 4)
-        walls[label] = float(re.search(r"^timing: total_max=(\S+) s", buf.getvalue(), re.M).group(1))
-        launches = read_counts()["K5"]
-    with open(os.path.join(tmp, "profile", "trace.json")) as f:
+            driver.run_simulation(merged_config(BENCH_CFG, run_args), [device] * n_devices)
+        out = buf.getvalue()
+        walls[how] = float(re.search(r"^timing: total_max=(\S+) s", out, re.M).group(1))
+        launches = read_counts()[kernel]
+        rates[how] = re.search(r"^throughput: (.*)$", out, re.M).group(1)
+    with open(os.path.join(prof_dir, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     by_name = {}
     for ev in events:
         if ev.get("cat") == "kernel":
-            key = "tile_stencil_kernel (K5)" if "tile_stencil_kernel" in ev["name"] else ev["name"][:60]
+            key = f"band_kernel ({kernel})" if "band_kernel" in ev["name"] else ev["name"][:60]
             n, us = by_name.get(key, (0, 0.0))
             by_name[key] = (n + 1, us + ev.get("dur", 0.0))
     total_ms = sum(us for _, us in by_name.values()) / 1e3
-    print(f"[profile] carrier {CARRIER_GRID}² on 2x2, 1000 steps, output off: timing wall"
-          f" {walls['unprofiled']:.4f} s unprofiled, {walls['profiled']:.4f} s profiled;"
-          f" K5 launches {launches} (incl. warm-up); kernel time {total_ms:.1f} ms,"
-          f" busy {total_ms / 1e3 / walls['profiled']:.1%} of the profiled wall,"
-          f" {total_ms / 1e3 / walls['unprofiled']:.1%} of the unprofiled")
+    k_n, k_us = by_name.get(f"band_kernel ({kernel})", (0, 0.0))
+    print(f"[profile] {label}, 1000 steps, output off: timing wall {walls['unprofiled']:.4f} s"
+          f" unprofiled, {walls['profiled']:.4f} s profiled; {kernel} launches {launches}"
+          f" (incl. warm-up), {k_us / 1e3:.2f} ms of {kernel} in {k_n} traced launches;"
+          f" kernel time {total_ms:.1f} ms, busy {total_ms / 1e3 / walls['profiled']:.1%}"
+          f" of the profiled wall, {total_ms / 1e3 / walls['unprofiled']:.1%} of the"
+          f" unprofiled")
+    print(f"[profile] {label} throughput: {rates['unprofiled']} unprofiled;"
+          f" {rates['profiled']} profiled")
     for key, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]:
         print(f"[profile]   {us / 1e3:8.2f} ms in {n:5d} launches: {key}")
     return walls, total_ms
@@ -994,23 +1080,27 @@ def main() -> int:
                 torch, device, label, cfg_path, extra, mesh_xy, kernel, tmp)[0]
         launches["K2"] += phase_per_step(torch, device)[0]
         launches["K2"] += phase_padded_per_step(torch, device)
-        k_ms, p_ms, k1_bound = phase_timing(torch, device)
+        k1_times = phase_timing(torch, device)
         tile_times, _, bounds, library = phase_tile_timing(torch, device)
-        phase_profile_carrier(torch, device, tmp)
+        phase_profile(torch, device, tmp, f"bench_{BENCH_GRID} single device",
+                      ["--kernel=pallas"], 1, "K1")
+        phase_profile(torch, device, tmp, f"carrier {CARRIER_GRID}² on 2x2",
+                      ["--kernel=pallas", f"--nx={CARRIER_GRID}", f"--ny={CARRIER_GRID}",
+                       "--mesh.x=2", "--mesh.y=2"], 4, "K5")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    sources = {"K1": "multistep_stencil.cu", "K2": "sharded_stencil.cu",
-               "K3": "sharded_stencil.cu", "K4": "sharded_stencil.cu",
-               "K5": "sharded_stencil.cu"}
+    sources = {"K1": "multistep_stencil.cu", "K2": "region_stencil.cu",
+               "K3": "region_stencil.cu", "K4": "slab_stencil.cu",
+               "K5": "slab_stencil.cu"}
     replaces = {"K1": 1309, "K2": 1371, "K3": 1418, "K4": 1525, "K5": 1588}
     titles = {"K1": "K1 multistep_stencil", "K2": "K2 prepadded_kernel_step",
               "K3": "K3 tile_region_multistep", "K4": "K4 sharded_tile_slab_multistep",
               "K5": "K5 carrier_tile_slab_multistep"}
     all_cases = {"K1": cases, **tile_cases}
     all_worst = {"K1": worst, **tile_worst}
-    all_times = {"K1": (k_ms, p_ms), **tile_times}
-    all_bounds = {"K1": k1_bound, **bounds}
+    all_times = {"K1": k1_times["float32"][:2], **tile_times}
+    all_bounds = {"K1": k1_times["float32"][2], **bounds}
     for n in KERNEL_NAMES:
         if launches[n] < 1:
             fail(f"{n} was launched no time on its path")
@@ -1022,6 +1112,7 @@ def main() -> int:
         "launches": launches[n],
         "max_abs_err": all_worst[n]["float32"],
         "max_abs_err_by_dtype": all_worst[n],
+        **({"ms_by_dtype": {d: t[0] for d, t in k1_times.items()}} if n == "K1" else {}),
         "cases": all_cases[n],
         "ms": all_times[n][0],
         "plain_ms": all_times[n][1],

@@ -1,17 +1,61 @@
-// The sub-step core shared by every stencil kernel of the port (K1-K4).
+// The sub-step core shared by every stencil kernel of the port (K1-K5):
+// streaming temporal blocking with the vertical operands in registers.
 //
-// A block owns a TILE_Y x TILE_X output tile.  Its shared memory holds two
-// (TILE_Y+2k) x (TILE_X+2k) window buffers of the compute type (ping-pong
-// between sub-steps) and one edge byte per window row and column.  The
-// kernels differ only in how they fill the window and the edge bytes: K1
-// from the global field with wrapped indices, K2-K4 from a tile and its
-// exchanged halos with edge flags.  The k sub-steps are the same.
+// Geometry.  A block of band_w threads (a multiple of 32) owns a column band
+// of band_w window columns, one column a thread, whose centre band_w - 2k
+// columns are its output.  It walks down a segment of seg_rows output rows
+// (the last segment of a field may be shorter), reading k halo rows above
+// and below: rows = segment + 2k window rows, one per iteration.  Level s
+// (the field after s sub-steps) trails level s-1 by one row, so at
+// iteration i level 0 receives window row i and level s computes row i-s
+// from level s-1's rows i-s-1, i-s and i-s+1; the k levels advance
+// together, one row and one barrier per iteration, and level k's row is
+// the output from iteration 2k on.  The wrapper computes band_w and
+// seg_rows (ops/cuda_stencil.py::band_geometry); the kernel derives the
+// grid from them.
 //
-// Edge bytes: bit 0 of a row (column) byte says that the cell's ym (xm)
-// operand is the bottom (left) BC ghost instead of the window neighbour;
-// bit 1 says the same of yp (xp) and the top (right) ghost.  The ghost is
-// the Dirichlet value, the cell's own value (Neumann) or 0 (periodic under
-// strict_reference_compat).  A live-periodic side never sets a bit.
+// Operands.  Each thread keeps, for each level, its column's last two rows
+// in registers (m2 = row r-1, m1 = row r) and gets row r+1 from the level
+// below in the same iteration, so ym, c and yp never touch shared memory.
+// Only xm and xp cross threads: each level's new row goes to a shared row
+// buffer (two parities, so one barrier per iteration separates the writes
+// of one iteration from the reads of the next), and the level above reads
+// its neighbours there one iteration later.  Per update that is one shared
+// store and two shared loads; level 0 needs no store of its own (its
+// neighbours are read from the load ring) except in bf16, where the ring
+// holds raw words and level 0 goes to a row buffer in f32 once per row.
+//
+// Loads.  Window rows arrive AHEAD rows early through cp.async (LDGSTS)
+// into a ring of RING = AHEAD + 2 shared rows, one element per thread per
+// row, and cp.async.wait_group precedes the barrier of the iteration that
+// uses them, so the load of row i + AHEAD overlaps the sub-steps on row i.
+// bf16 loads the aligned 4-byte word that holds the element (cp.async
+// copies 4, 8 or 16 bytes) and the thread keeps which half it wants.
+// Every address comes from a Source (wrapped global field for K1, a padded
+// region for K2/K3, the tile and its halo slabs for K4/K5): its column part
+// is computed once per thread, its row part once per row and uniform
+// across the block, so no element pays a run-time `%`.
+//
+// The edge rule.  A row's (column's) edge bits say that a cell's ym (xm)
+// operand is the bottom (left) BC ghost instead of the neighbour (bit 0),
+// or that its yp (xp) is the top (right) ghost (bit 1).  The ghost is the
+// Dirichlet value, the cell's own value (Neumann) or 0 (periodic under
+// strict_reference_compat); a live-periodic side never sets a bit.  Column
+// bits are computed once per thread; row bits once per row and shifted
+// into a 64-bit history, so level s reads bit s (warp-uniform).  A block
+// whose window touches no fixed side runs an instantiation without any
+// select (decided once per block; level counts up to FAST_MAX).
+//
+// k.  The levels' registers need a compile-time count, so the core is
+// instantiated for 1, 2, 4, 8, 16 and 32 levels and a pass runs the least
+// count that covers k: every level runs, the output is level k's row, and
+// the levels above k compute rows that nothing reads (k = 1, 2, 4, 8, 16
+// and 32 waste nothing; k = 5 wastes most, 3 levels of 8).  Every k in
+// [1, MAX_STEPS] is one launch, so bf16 still rounds once per pass.  The
+// loop body covers six rows, the ring's period and a multiple of the level
+// rows' parity (2) and of the registers' rotation (3), so ring slots,
+// shared offsets and registers are constants: no moves, no computed
+// shared addresses, no branch per level.
 //
 // bf16 is a storage type: loads widen to f32, the sub-steps run in f32,
 // and the result rounds to bf16 once, on the write.  f64 runs in f64.
@@ -21,16 +65,23 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <type_traits>
+
 namespace climate {
 
-constexpr int TILE_X = 64;   // output tile width (columns)
-constexpr int TILE_Y = 32;   // output tile height (rows)
-constexpr int BLOCK_X = 32;  // threads along x: one warp per window row
-constexpr int BLOCK_Y = 8;
 constexpr int MAX_STEPS = 32;  // the config's steps_per_pass ceiling
+constexpr int FAST_MAX = 8;    // level counts up to this have a select-free path
+constexpr int MAX_BAND = 256;  // threads (window columns) of a block
+constexpr int AHEAD = 4;       // rows in flight ahead of the row in use
+constexpr int RING = AHEAD + 2;
+// Entries of a shared row: MAX_BAND columns and a pad on each side that the
+// edge threads read as xm / xp.  Fixed, so every shared address in the
+// loop is a register plus an immediate, whatever the band's width.
+constexpr int STRIDE = MAX_BAND + 2;
 
 // Side codes, in the order left, right, bottom, top.
-constexpr int FIX_NONE = 0;       // live periodic: read the window neighbour
+constexpr int FIX_NONE = 0;       // live periodic: read the neighbour
 constexpr int FIX_DIRICHLET = 1;  // ghost = bc_value
 constexpr int FIX_NEUMANN = 2;    // ghost = the cell's own value
 constexpr int FIX_ZERO = 3;       // reference-compat periodic: ghost = 0
@@ -42,6 +93,14 @@ struct Stencil {
   double wc, wxm, wxp, wym, wyp;
   int fix[4];
   double bc_value;
+};
+
+// One pass: the output extent and row stride, the band geometry.
+struct Pass {
+  int ny, nx;
+  long long ld_out;
+  int band_w, seg_rows;
+  Stencil s;
 };
 
 // Fill a Stencil from a C entry point's arguments; false when k or a side
@@ -65,15 +124,65 @@ inline bool make_stencil(Stencil* s, int k, double wc, double wxm, double wxp,
   return true;
 }
 
-__device__ __forceinline__ float to_compute(float v) { return v; }
-__device__ __forceinline__ double to_compute(double v) { return v; }
-__device__ __forceinline__ float to_compute(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// The band geometry the wrapper chose; false when the kernel cannot run it.
+inline bool band_ok(int band_w, int seg_rows, int k) {
+  return band_w >= 32 && band_w <= MAX_BAND && band_w % 32 == 0 &&
+         band_w > 2 * k && seg_rows >= 1;
 }
+
+// What a ring slot holds: the element, or for bf16 the aligned word
+// around it.
+template <typename T>
+struct Word {
+  using type = T;
+};
+template <>
+struct Word<__nv_bfloat16> {
+  using type = uint32_t;
+};
+
+template <typename T>
+__device__ __forceinline__ const typename Word<T>::type* word_of(const T* p) {
+  return p;
+}
+__device__ __forceinline__ const uint32_t* word_of(const __nv_bfloat16* p) {
+  return reinterpret_cast<const uint32_t*>(reinterpret_cast<uintptr_t>(p) &
+                                           ~static_cast<uintptr_t>(3));
+}
+// Which half of its word a bf16 element is (1: the high one).
+template <typename T>
+__device__ __forceinline__ unsigned half_of(const T*) {
+  return 0;
+}
+__device__ __forceinline__ unsigned half_of(const __nv_bfloat16* p) {
+  return static_cast<unsigned>(reinterpret_cast<uintptr_t>(p) >> 1) & 1u;
+}
+
+__device__ __forceinline__ float widen(float w, unsigned) { return w; }
+__device__ __forceinline__ double widen(double w, unsigned) { return w; }
+__device__ __forceinline__ float widen(uint32_t w, unsigned hi) {
+  return __uint_as_float(hi ? (w & 0xffff0000u) : (w << 16));
+}
+
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(double* p, double v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
+}
+
+template <typename W>
+__device__ __forceinline__ void cp_async(W* dst, const W* src) {
+  static_assert(sizeof(W) == 4 || sizeof(W) == 8, "cp.async copies 4 or 8 bytes here");
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+               "n"(sizeof(W)));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 template <typename C>
@@ -81,10 +190,22 @@ __device__ __forceinline__ C ghost_const(int fix, double bc_value) {
   return fix == FIX_DIRICHLET ? static_cast<C>(bc_value) : static_cast<C>(0);
 }
 
-// Bytes of dynamic shared memory a block needs for pass size k.
-inline size_t window_smem_bytes(int k, size_t compute_size) {
-  const size_t wy = TILE_Y + 2 * k, wx = TILE_X + 2 * k;
-  return 2 * wy * wx * compute_size + wy + wx;
+// Shared rows a KB-level instantiation keeps per parity: levels 1..KB-1,
+// and level 0 in bf16.
+template <typename T, typename C, int KB>
+__host__ __device__ constexpr int levels_buffered() {
+  return (KB - 1) + (std::is_same<T, C>::value ? 0 : 1);
+}
+
+template <typename T>
+__host__ __device__ constexpr size_t ring_bytes() {
+  return (RING * STRIDE * sizeof(typename Word<T>::type) + 15) / 16 * 16;
+}
+
+template <typename T, typename C, int KB>
+__host__ __device__ constexpr size_t band_smem_bytes() {
+  return ring_bytes<T>() + 2 * static_cast<size_t>(levels_buffered<T, C, KB>()) *
+                               STRIDE * sizeof(C);
 }
 
 // Raise a kernel's dynamic shared-memory ceiling when a pass needs more
@@ -96,65 +217,211 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// The shared-memory carve-up of one block.
-template <typename C>
-struct Window {
-  int wy, wx;
-  C* src;
-  C* dst;
-  unsigned char* rowf;
-  unsigned char* colf;
+// Stream one band segment: `rows` window rows starting at tile row y0 - k,
+// this thread's window column c at tile column tc.  All KB levels run; the
+// output is level k's row (k <= KB), levels above it compute unused rows.
+template <typename T, typename C, int KB, bool EDGES, typename Source>
+__device__ __forceinline__ void stream_band(const Source& src, T* __restrict__ out,
+                                            const Pass& p, unsigned char* smem,
+                                            int y0, int rows, int tc,
+                                            unsigned colbits) {
+  using W = typename Word<T>::type;
+  constexpr bool kWidened = !std::is_same<T, C>::value;
+  constexpr int NB = levels_buffered<T, C, KB>();
+  static_assert(RING == 6, "the six-row loop body keeps ring slot == row mod 6");
+  const int k = p.s.k, c = threadIdx.x;
+  W* ring = reinterpret_cast<W*>(smem) + 1 + c;
+  C* lvl = reinterpret_cast<C*>(smem + ring_bytes<T>()) + 1 + c;
 
-  __device__ Window(unsigned char* smem, int k)
-      : wy(TILE_Y + 2 * k), wx(TILE_X + 2 * k) {
-    src = reinterpret_cast<C*>(smem);
-    dst = src + wy * wx;
-    rowf = reinterpret_cast<unsigned char*>(dst + wy * wx);
-    colf = rowf + wy;
+  const C wc = static_cast<C>(p.s.wc), wxm = static_cast<C>(p.s.wxm),
+          wxp = static_cast<C>(p.s.wxp), wym = static_cast<C>(p.s.wym),
+          wyp = static_cast<C>(p.s.wyp);
+  const int* fix = p.s.fix;
+  const bool self_l = fix[0] == FIX_NEUMANN, self_r = fix[1] == FIX_NEUMANN;
+  const bool self_b = fix[2] == FIX_NEUMANN, self_t = fix[3] == FIX_NEUMANN;
+  const C g_l = ghost_const<C>(fix[0], p.s.bc_value);
+  const C g_r = ghost_const<C>(fix[1], p.s.bc_value);
+  const C g_b = ghost_const<C>(fix[2], p.s.bc_value);
+  const C g_t = ghost_const<C>(fix[3], p.s.bc_value);
+  const bool x_lo = colbits & 1u, x_hi = colbits & 2u;
+  const bool writes = c >= k && c < p.band_w - k && tc < p.nx;
+  T* dst = out + static_cast<long long>(y0) * p.ld_out + tc;  // next output row
+
+  // The load cursor runs AHEAD rows in front of the row in use.
+  const auto col = src.column(tc);
+  int ld_row = src.row_start(y0 - k);
+  unsigned halves = 0;  // bf16: bit j is the half of row i + j's word
+#pragma unroll
+  for (int j = 0; j < AHEAD; ++j) {
+    if (j < rows) {
+      const T* e = src.at(ld_row, col);
+      cp_async(ring + j * STRIDE, word_of(e));
+      halves |= half_of(e) << j;
+      ld_row = src.row_next(ld_row);
+    }
+    cp_async_commit();
   }
-};
 
-// Run the k sub-steps on a loaded window (edge bytes set, block
-// synchronised).  Sub-step s updates the cells at distance >= s+1 from the
-// window edge; they read neighbours at distance >= s, which sub-step s-1
-// wrote (or the load did), so after k sub-steps the centre tile is exact.
-// Returns the buffer that holds the result.
-template <typename C>
-__device__ __forceinline__ const C* run_substeps(Window<C>& w, const Stencil& p) {
-  const C wc = static_cast<C>(p.wc), wxm = static_cast<C>(p.wxm),
-          wxp = static_cast<C>(p.wxp), wym = static_cast<C>(p.wym),
-          wyp = static_cast<C>(p.wyp);
-  const bool self_l = p.fix[0] == FIX_NEUMANN, self_r = p.fix[1] == FIX_NEUMANN;
-  const bool self_b = p.fix[2] == FIX_NEUMANN, self_t = p.fix[3] == FIX_NEUMANN;
-  const C g_l = ghost_const<C>(p.fix[0], p.bc_value);
-  const C g_r = ghost_const<C>(p.fix[1], p.bc_value);
-  const C g_b = ghost_const<C>(p.fix[2], p.bc_value);
-  const C g_t = ghost_const<C>(p.fix[3], p.bc_value);
-  const int wx = w.wx;
-  C* src = w.src;
-  C* dst = w.dst;
-  for (int s = 0; s < p.k; ++s) {
-    const int lo = s + 1, hy = w.wy - s - 1, hx = wx - s - 1;
-    for (int r = lo + threadIdx.y; r < hy; r += BLOCK_Y) {
-      const unsigned char rf = w.rowf[r];
-      for (int c = lo + threadIdx.x; c < hx; c += BLOCK_X) {
-        const unsigned char cf = w.colf[c];
-        const int i = r * wx + c;
-        const C a = src[i];
-        const C ym = (rf & 1) ? (self_b ? a : g_b) : src[i - wx];
-        const C yp = (rf & 2) ? (self_t ? a : g_t) : src[i + wx];
-        const C xm = (cf & 1) ? (self_l ? a : g_l) : src[i - 1];
-        const C xp = (cf & 2) ? (self_r ? a : g_r) : src[i + 1];
-        // The JAX kernel's accumulation order: c, ym, yp, xm, xp.
-        dst[i] = wc * a + wym * ym + wyp * yp + wxm * xm + wxp * xp;
+  int bits_row = src.row_start(y0 - k);
+  unsigned long long h_lo = 0, h_hi = 0;  // bit s: row i - s's edge bits
+  // q[s][i % 3]: level s's row computed at iteration i (row i - s).
+  C q[KB][3];
+#pragma unroll
+  for (int s = 0; s < KB; ++s) q[s][0] = q[s][1] = q[s][2] = static_cast<C>(0);
+
+  // Row i, with U = i mod 6: the ring slot (U), the parity of the shared
+  // level rows (U & 1) and the register rotation (U % 3) are constants.
+  auto row = [&](int i, auto u) {
+    constexpr int U = decltype(u)::value;
+    constexpr int PAR = U & 1, NOW = U % 3, ONE = (U + 2) % 3, TWO = (U + 1) % 3;
+    cp_async_wait<AHEAD - 1>();
+    __syncthreads();
+    q[0][NOW] = widen(ring[U * STRIDE], halves & 1u);
+    halves >>= 1;
+    if (i + AHEAD < rows) {
+      const T* e = src.at(ld_row, col);
+      cp_async(ring + ((U + AHEAD) % RING) * STRIDE, word_of(e));
+      halves |= half_of(e) << (AHEAD - 1);
+      ld_row = src.row_next(ld_row);
+    }
+    cp_async_commit();
+    if (EDGES) {
+      const unsigned b = src.row_bits(bits_row);
+      bits_row = src.row_next(bits_row);
+      h_lo = (h_lo << 1) | (b & 1u);
+      h_hi = (h_hi << 1) | ((b >> 1) & 1u);
+    }
+    C* cur = lvl + PAR * NB * STRIDE;              // rows written now
+    const C* old = lvl + (PAR ^ 1) * NB * STRIDE;  // rows of row i - 1
+    const C* below;  // level 0's row i-1 at this column
+    if constexpr (kWidened) {
+      cur[0] = q[0][NOW];
+      below = old;
+    } else {
+      below = reinterpret_cast<const C*>(ring + ((U + RING - 1) % RING) * STRIDE);
+    }
+    C res = static_cast<C>(0);
+#pragma unroll
+    for (int s = 1; s <= KB; ++s) {
+      const C a = q[s - 1][ONE];
+      C ym = q[s - 1][TWO], yp = q[s - 1][NOW], xm = below[-1], xp = below[1];
+      if (EDGES) {
+        if ((h_lo >> s) & 1ull) ym = self_b ? a : g_b;
+        if ((h_hi >> s) & 1ull) yp = self_t ? a : g_t;
+        if (x_lo) xm = self_l ? a : g_l;
+        if (x_hi) xp = self_r ? a : g_r;
+      }
+      // The JAX kernel's accumulation order: c, ym, yp, xm, xp.
+      const C r = wc * a + wym * ym + wyp * yp + wxm * xm + wxp * xp;
+      if (s == k) res = r;
+      if (s < KB) {
+        constexpr int kOff = kWidened ? 1 : 0;
+        q[s][NOW] = r;
+        cur[(s - 1 + kOff) * STRIDE] = r;
+        below = old + (s - 1 + kOff) * STRIDE;
       }
     }
-    __syncthreads();
-    C* t = src;
-    src = dst;
-    dst = t;
+    // res is level k's window row i - k: output row y0 + i - 2k.
+    if (i >= 2 * k) {
+      if (writes) store(dst, res);
+      dst += p.ld_out;
+    }
+  };
+
+  for (int i = 0; i < rows; i += 6) {
+    row(i, std::integral_constant<int, 0>{});
+    if (i + 1 < rows) row(i + 1, std::integral_constant<int, 1>{});
+    if (i + 2 < rows) row(i + 2, std::integral_constant<int, 2>{});
+    if (i + 3 < rows) row(i + 3, std::integral_constant<int, 3>{});
+    if (i + 4 < rows) row(i + 4, std::integral_constant<int, 4>{});
+    if (i + 5 < rows) row(i + 5, std::integral_constant<int, 5>{});
   }
-  return src;
+}
+
+// One block per band segment (grid: bands x segments).  minBlocks = 1 lets
+// ptxas keep every level's rows in registers: without it, it trades the
+// 8- and 16-level f32/bf16 kernels down to 80 registers and spills.
+template <typename T, typename C, int KB, typename Source>
+__global__ void __launch_bounds__(MAX_BAND, 1)
+    band_kernel(Source src, T* __restrict__ out, Pass p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int k = p.s.k;
+  const int x0 = blockIdx.x * (p.band_w - 2 * k);  // first output column
+  const int y0 = blockIdx.y * p.seg_rows;          // first output row
+  const int rows = min(p.seg_rows, p.ny - y0) + 2 * k;
+  const int tc = x0 - k + static_cast<int>(threadIdx.x);
+
+  // Zero the shared layout (pads and start-up rows hold zeros, not stale
+  // bits), and decide whether this block's window touches a fixed side.
+  constexpr int words = static_cast<int>(band_smem_bytes<T, C, KB>() / 4);
+  for (int i = threadIdx.x; i < words; i += blockDim.x) {
+    reinterpret_cast<uint32_t*>(smem)[i] = 0u;
+  }
+  const unsigned colbits = src.col_bits(tc);
+  unsigned any = colbits;
+  for (int j = threadIdx.x; j < rows; j += blockDim.x) {
+    any |= src.row_bits(src.row_start(y0 - k + j));
+  }
+  const bool edges = __syncthreads_or(any != 0u);
+  if constexpr (KB <= FAST_MAX) {
+    if (!edges) {
+      stream_band<T, C, KB, false>(src, out, p, smem, y0, rows, tc, 0u);
+      return;
+    }
+  }
+  stream_band<T, C, KB, true>(src, out, p, smem, y0, rows, tc, colbits);
+}
+
+template <typename T, typename C, int KB, typename Source>
+cudaError_t launch_levels(const Source& src, T* out, const Pass& p,
+                          cudaStream_t stream) {
+  constexpr size_t smem = band_smem_bytes<T, C, KB>();
+  const cudaError_t e = allow_smem(band_kernel<T, C, KB, Source>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.nx + p.band_w - 2 * p.s.k - 1) / (p.band_w - 2 * p.s.k),
+                  (p.ny + p.seg_rows - 1) / p.seg_rows);
+  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
+  band_kernel<T, C, KB, Source><<<grid, p.band_w, smem, stream>>>(src, out, p);
+  return cudaGetLastError();
+}
+
+// Launch one pass of the core on the current stream, with the least level
+// count that covers k.
+template <typename T, typename C, typename Source>
+cudaError_t launch_band(const Source& src, void* out, const Pass& p,
+                        cudaStream_t stream) {
+  if (!band_ok(p.band_w, p.seg_rows, p.s.k)) return cudaErrorInvalidValue;
+  T* o = static_cast<T*>(out);
+  const int k = p.s.k;
+  if (k <= 1) return launch_levels<T, C, 1>(src, o, p, stream);
+  if (k <= 2) return launch_levels<T, C, 2>(src, o, p, stream);
+  if (k <= 4) return launch_levels<T, C, 4>(src, o, p, stream);
+  if (k <= 8) return launch_levels<T, C, 8>(src, o, p, stream);
+  if (k <= 16) return launch_levels<T, C, 16>(src, o, p, stream);
+  return launch_levels<T, C, MAX_STEPS>(src, o, p, stream);
+}
+
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+// Launch one pass for a dtype code (0 float32, 1 float64, 2 bfloat16
+// storage with float32 arithmetic) with the source make(Tag<T>) builds.
+template <typename Make>
+inline int dispatch(int dtype, const Pass& p, void* out, void* stream, Make make) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return static_cast<int>(launch_band<float, float>(make(Tag<float>{}), out, p, s));
+    case 1:
+      return static_cast<int>(launch_band<double, double>(make(Tag<double>{}), out, p, s));
+    case 2:
+      return static_cast<int>(
+          launch_band<__nv_bfloat16, float>(make(Tag<__nv_bfloat16>{}), out, p, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace climate

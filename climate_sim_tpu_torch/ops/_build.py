@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``climate_sim_tpu_torch/csrc/`` (``*.cu``, which include
-the shared ``*.cuh`` headers) compile with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, which :mod:`ctypes` loads.  The
+the shared ``*.cuh`` headers) compile with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, and link into one shared
+library with a plain C interface, which :mod:`ctypes` loads.  The
 build runs at first use, into ``climate_sim_tpu_torch/_build/``, and again
 whenever the hash of the sources and headers changes: the library's file
 name carries the hash.  Nothing here imports
@@ -31,7 +32,7 @@ DEFAULT_CUDA_BIN = "/usr/local/cuda/bin"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -97,23 +98,25 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, cd, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
     weights = [cd] * 5                   # wc, wxm, wxp, wym, wyp
     sides = [ci] * 4                     # left, right, bottom, top
+    band = [ci] * 2                      # band_w, seg_rows (band_geometry)
     signatures = {
-        # K1: in, out, ny, nx, k, dtype, weights, fixes, bc_value, stream
+        # K1: in, out, ny, nx, k, dtype, weights, fixes, bc_value, band, stream
         "climate_multistep_stencil":
-            [vp, vp, ci, ci, ci, ci, *weights, *sides, cd, vp],
-        # K2: in, out, ny, nx, dtype, weights, stream
-        "climate_prepadded_step": [vp, vp, ci, ci, ci, *weights, vp],
+            [vp, vp, ci, ci, ci, ci, *weights, *sides, cd, *band, vp],
+        # K2: in, out, ny, nx, dtype, weights, band, stream
+        "climate_prepadded_step": [vp, vp, ci, ci, ci, *weights, *band, vp],
         # K3: in, ld_in, out, ld_out, ny, nx, k, kh, dtype, weights, fixes,
-        #     edge flags, bc_value, stream
+        #     edge flags, bc_value, band, stream
         "climate_region_multistep":
-            [vp, cll, vp, cll, ci, ci, ci, ci, ci, *weights, *sides, *sides, cd, vp],
+            [vp, cll, vp, cll, ci, ci, ci, ci, ci, *weights, *sides, *sides, cd, *band, vp],
         # K4: tile, xhalo, yhalo, out, ny, nx, k, kh, dtype, weights, fixes,
-        #     edge flags, bc_value, stream
+        #     edge flags, bc_value, band, stream
         "climate_slab_multistep":
-            [vp, vp, vp, vp, ci, ci, ci, ci, ci, *weights, *sides, *sides, cd, vp],
+            [vp, vp, vp, vp, ci, ci, ci, ci, ci, *weights, *sides, *sides, cd, *band, vp],
         # K5: K4's arguments with the true extent (ly, lx) after (ny, nx)
         "climate_carrier_multistep":
-            [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, *weights, *sides, *sides, cd, vp],
+            [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, *weights, *sides, *sides, cd,
+             *band, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -136,15 +139,27 @@ def load_library() -> KernelLibrary:
         nvcc = find_nvcc()
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
+        objects = [f"{tmp}.{i}.o" for i in range(len(sources))]
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, *sources],
-            capture_output=True, text=True,
-        )
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objects)
+        ]
+        outs = [(p.communicate()[0], p.returncode) for p in procs]
+        log = "".join(out for out, _ in outs)
+        rc = next((rc for _, rc in outs if rc), 0)
+        if rc == 0:
+            link = subprocess.run([nvcc, "-shared", "-o", tmp, *objects],
+                                  capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            rc = link.returncode
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{log}")
         os.replace(tmp, path)  # atomic: a reader never sees a partial file
         built = True
     lib = ctypes.CDLL(path)

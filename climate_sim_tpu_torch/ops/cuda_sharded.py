@@ -16,12 +16,15 @@ with the JAX names:
   carrier (:func:`climate_sim_tpu_torch.parallel.halo.build_carrier_slab_advance`),
   the true right/top edge at a runtime tile column/row.
 
-All four are one CUDA template (``csrc/sharded_stencil.cu``) over K1's
-sub-step core.  Edge flags ``(left, right, bottom, top)``, 1 where the
-tile's side lies on the physical grid edge, are host integers passed as
-kernel scalars.  The edge rule (see the CUDA source) gives the flag-gated
-BC fixups and the one-sided-periodic wrap patches of the TPU kernel; all
-flags 0 is K3's ``flagged=False``.  K5 takes six: the four, then the true
+All four run K1's streaming core (``csrc/region_stencil.cu`` for K2/K3
+and ``csrc/slab_stencil.cu`` for K4/K5, over ``csrc/stencil_core.cuh``
+and ``csrc/tile_stencil.cuh``), with the band geometry of their output
+extent (:func:`..cuda_stencil.band_geometry`).  Edge flags ``(left,
+right, bottom, top)``, 1 where the tile's side lies on the physical grid
+edge, are host integers passed as kernel scalars.  The edge rule (see
+``csrc/tile_stencil.cuh``) gives the flag-gated BC fixups and the
+one-sided-periodic wrap patches of the TPU kernel; all flags 0 is K3's
+``flagged=False``.  K5 takes six: the four, then the true
 extent ``(ly, lx)`` of the tile that holds the top/right edge, where the
 rule fires instead of at the tile's own extent.
 
@@ -48,6 +51,8 @@ from .cuda_stencil import (
     MAX_STEPS_PER_PASS,
     _fix_code,
     _stencil_weights,
+    band_geometry,
+    on_device,
 )
 
 NO_FLAGS = (0, 0, 0, 0)
@@ -70,7 +75,7 @@ def _edge_masks(n: int, l: int, k: int, fix_lo: int, fix_hi: int, flag_lo,
     """The edge rule along one axis of extent n whose true extent on a
     high-edge tile is l, over window lines g in [-k, n+k): (lo, hi) masks
     of the lines whose low (high) neighbour operand is the BC ghost (see
-    csrc/sharded_stencil.cu)."""
+    csrc/tile_stencil.cuh)."""
     g = torch.arange(-k, n + k, device=device)
     lo = (g == 0) & bool(flag_lo) | (g == l) & bool(flag_hi)
     hi = (g == l - 1) & bool(flag_hi) | (g == -1) & bool(flag_lo)
@@ -231,7 +236,7 @@ def _launch(kernel: str, tensors: Sequence[torch.Tensor], fn: Callable):
     from ._build import load_library
 
     lib = load_library().lib
-    with torch.cuda.device(dev):
+    with on_device(dev):
         err = fn(lib, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         msg = lib.climate_cuda_error_string(err).decode()
@@ -249,7 +254,7 @@ def prepadded_kernel_step(up: torch.Tensor, cfg: SimConfig, dt: float
     out = torch.empty((my, mx), dtype=up.dtype, device=up.device)
     _launch("K2", [up], lambda lib, stream: lib.climate_prepadded_step(
         up.data_ptr(), out.data_ptr(), my, mx, _DTYPE_CODES[up.dtype],
-        *_weights(cfg, dt), stream,
+        *_weights(cfg, dt), *band_geometry(my, mx, 1)[:2], stream,
     ))
     prepadded_kernel_step.launches += 1
     return out
@@ -289,7 +294,7 @@ def tile_region_multistep(padded: torch.Tensor, edge_flags: Sequence[int],
     _launch("K3", [padded, out], lambda lib, stream: lib.climate_region_multistep(
         padded.data_ptr(), padded.stride(0), out.data_ptr(), out.stride(0),
         ny_r, nx_r, k, kh, _DTYPE_CODES[padded.dtype], *_weights(cfg, dt),
-        *_fixes(cfg), *flags, 0.0, stream,
+        *_fixes(cfg), *flags, 0.0, *band_geometry(ny_r, nx_r, k)[:2], stream,
     ))
     tile_region_multistep.launches += 1
     return out
@@ -323,7 +328,7 @@ def sharded_tile_slab_multistep(tile: torch.Tensor, xhalo: torch.Tensor,
     _launch("K4", [tile, xhalo, yhalo], lambda lib, stream: lib.climate_slab_multistep(
         tile.data_ptr(), xhalo.data_ptr(), yhalo.data_ptr(), out.data_ptr(),
         my, mx, k, kh, _DTYPE_CODES[tile.dtype], *_weights(cfg, dt),
-        *_fixes(cfg), *flags, 0.0, stream,
+        *_fixes(cfg), *flags, 0.0, *band_geometry(my, mx, k)[:2], stream,
     ))
     sharded_tile_slab_multistep.launches += 1
     return out
@@ -356,7 +361,7 @@ def carrier_tile_slab_multistep(tile: torch.Tensor, xhalo: torch.Tensor,
     _launch("K5", [tile, xhalo, yhalo], lambda lib, stream: lib.climate_carrier_multistep(
         tile.data_ptr(), xhalo.data_ptr(), yhalo.data_ptr(), out.data_ptr(),
         my, mx, ly, lx, k, kh, _DTYPE_CODES[tile.dtype], *_weights(cfg, dt),
-        *_fixes(cfg), *flags, 0.0, stream,
+        *_fixes(cfg), *flags, 0.0, *band_geometry(my, mx, k)[:2], stream,
     ))
     carrier_tile_slab_multistep.launches += 1
     return out

@@ -7,18 +7,21 @@ one pass of the hand-written CUDA kernel ``csrc/multistep_stencil.cu``, and
 
 The update is linear with config-constant coefficients, so one Euler step
 collapses to a 5-point weighted stencil (:func:`_stencil_weights`).  The
-kernel keeps a k-deep halo window per tile on chip and re-pins the
-physical-edge ghosts at every sub-step, so one pass equals ``k`` iterations
-of ``pad_with_ghosts`` + the weighted stencil (:func:`multistep_pass_plain`)
-for every grid shape, BC mix and dtype; it never declines, and the advance
-has no per-pass fallback.
+kernel streams column bands of the field down their rows with the k
+sub-steps pipelined one row apart (:func:`band_geometry` sizes the bands)
+and re-pins the physical-edge ghosts at every sub-step, so one pass equals
+``k`` iterations of ``pad_with_ghosts`` + the weighted stencil
+(:func:`multistep_pass_plain`) for every grid shape, BC mix and dtype; it
+never declines, and the advance has no per-pass fallback.
 
 bf16 is a storage mode: f32 arithmetic, one rounding per pass.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List
+import contextlib
+import functools
+from typing import Callable, List, NamedTuple
 
 import torch
 
@@ -29,6 +32,53 @@ from .boundary import pad_with_ghosts
 _FIX_NONE, _FIX_DIRICHLET, _FIX_NEUMANN, _FIX_ZERO = 0, 1, 2, 3
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 MAX_STEPS_PER_PASS = 32
+# The widest band of the kernels' core (csrc/stencil_core.cuh): window
+# columns, one thread each, of a block.
+MAX_BAND = 256
+# Blocks a pass should have at least: two on each of the H100's 132 SMs.
+MIN_BLOCKS = 2 * 132
+
+
+class BandGeometry(NamedTuple):
+    """How the core cuts an (ny, nx) output for a k-step pass: ``width``
+    window columns a band (the block's threads; ``width - 2k`` of them are
+    output), ``rows`` output rows a segment (the last may be shorter), and
+    the grid of ``bands`` x ``segments`` blocks."""
+
+    width: int
+    rows: int
+    bands: int
+    segments: int
+
+
+@functools.lru_cache(maxsize=256)
+def band_geometry(ny: int, nx: int, k: int) -> BandGeometry:
+    """The band geometry the kernels run an (ny, nx) output with at pass
+    size k: bands 16k columns wide (so the 2k halo columns cost at most an
+    eighth), at least 128 and at most MAX_BAND, narrowed to the multiple
+    of 32 that holds the whole width with its halo when that is less;
+    segments of 8k rows (at least 16), at most ny.  On the H100 these
+    beat wider bands and taller segments for k = 1 and 8 (more resident
+    blocks per SM hide the barrier and load latency of each row).  A
+    shape that gives fewer than MIN_BLOCKS blocks (a small grid, K3's
+    k-wide bands) halves its segments, down to 8 rows, then narrows its
+    bands, down to 32 columns, until it has them."""
+    if not (1 <= k <= MAX_STEPS_PER_PASS and ny >= 1 and nx >= 1):
+        raise ValueError(f"no band geometry for ({ny}, {nx}) at k={k}")
+
+    def blocks(width, rows):
+        return -(-nx // (width - 2 * k)) * -(-ny // rows)
+
+    width = min(max(128, 16 * k), MAX_BAND, -(-(nx + 2 * k) // 32) * 32)
+    rows = min(ny, max(16, 8 * k))
+    while blocks(width, rows) < MIN_BLOCKS:
+        if rows > 8:
+            rows = max(8, -(-rows // 16) * 8)
+        elif width - 32 > 2 * k:
+            width -= 32
+        else:
+            break
+    return BandGeometry(width, rows, -(-nx // (width - 2 * k)), -(-ny // rows))
 
 
 def _stencil_weights(dt, D, vx, vy, dx, dy):
@@ -140,6 +190,15 @@ def _check(u: torch.Tensor, cfg: SimConfig, k: int) -> None:
         raise ValueError(f"k must be an int in [1, {MAX_STEPS_PER_PASS}], got {k!r}")
 
 
+def on_device(device: torch.device):
+    """A context in which ``device`` is the current CUDA device (the one a
+    C entry point launches on): a no-op when it already is, since a device
+    switch costs host time on every launch."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def multistep_kernel_step(
     u: torch.Tensor, cfg: SimConfig, dt: float, k: int
 ) -> torch.Tensor:
@@ -163,12 +222,13 @@ def multistep_kernel_step(
         for b in (cfg.bc.left, cfg.bc.right, cfg.bc.bottom, cfg.bc.top)
     ]
     weights = _stencil_weights(dt, cfg.D, cfg.vx, cfg.vy, cfg.dx, cfg.dy)
+    geo = band_geometry(cfg.ny, cfg.nx, k)
     out = torch.empty_like(u)
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
+    with on_device(u.device):
         err = lib.climate_multistep_stencil(
             u.data_ptr(), out.data_ptr(), cfg.ny, cfg.nx, k,
-            _DTYPE_CODES[u.dtype], *weights, *fixes, 0.0, stream,
+            _DTYPE_CODES[u.dtype], *weights, *fixes, 0.0, geo.width,
+            geo.rows, torch.cuda.current_stream(u.device).cuda_stream,
         )
     if err:
         msg = lib.climate_cuda_error_string(err).decode()

@@ -464,11 +464,15 @@ def cuda_device():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(96, 120), (300, 260), (333, 241)])
 @pytest.mark.parametrize("bc_class", list(BC_CLASSES))
-def test_k5_cuda_kernel_matches_plain_on_card(cuda_device, bc_class):
-    _, tcfg = make_cfgs(120, 96, bc_class)
-    tile, xh, yh = (t.to(cuda_device) for t in port_slabs(window(96, 120, 8, np.float32, 6), 8))
-    for ly, lx in ((96, 120), (45, 100), (8, 8)):
+def test_k5_cuda_kernel_matches_plain_on_card(cuda_device, bc_class, shape):
+    """Carrier tiles of one band, of two bands, and one column wider than
+    a band's output with a ragged last segment; true extents inside."""
+    my, mx = shape
+    _, tcfg = make_cfgs(mx, my, bc_class)
+    tile, xh, yh = (t.to(cuda_device) for t in port_slabs(window(my, mx, 8, np.float32, 6), 8))
+    for ly, lx in ((my, mx), (my - 51, mx - 20), (8, 8)):
         for flags in K5_FLAGS:
             f6 = (*flags, ly, lx)
             n = tsh.carrier_tile_slab_multistep.launches

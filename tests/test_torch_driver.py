@@ -376,8 +376,9 @@ def test_port_imports_no_jax():
 def test_build_finds_sources_without_nvcc(tmp_path, monkeypatch):
     srcs = _build.kernel_sources()
     assert [os.path.basename(s) for s in srcs] == ["multistep_stencil.cu",
-                                                   "sharded_stencil.cu"]
-    assert [os.path.basename(s) for s in _build.kernel_headers()] == ["stencil_core.cuh"]
+                                                   "region_stencil.cu", "slab_stencil.cu"]
+    assert [os.path.basename(s) for s in _build.kernel_headers()] == ["stencil_core.cuh",
+                                                                      "tile_stencil.cuh"]
     assert os.path.dirname(srcs[0]) == os.path.join(REPO, "climate_sim_tpu_torch", "csrc")
     h = _build.sources_hash(srcs)
     assert len(h) == 16 and h == _build.sources_hash(srcs)

@@ -8,6 +8,14 @@ mass parked against every edge.  Tolerances follow tests/test_pallas.py: f32
 bf16 storage within ``8e-3`` of the f32 oracle.  The CUDA kernel itself is
 compared with the plain version on the card (``chip_smoke.py``, and the
 ``gpu``-marked test below).
+
+The kernels' band geometry (``band_geometry``) and their streaming
+decomposition are held here too: :func:`stream_pass_emulated` runs, in
+torch on the CPU, what each block of the CUDA core does (one band segment,
+its window read through the kernel's source, the k levels one row apart
+with the vertical operands kept per level, xm/xp from the level's previous
+row, the edge bits as a per-row history and per-column bits), and the
+tests hold it to the plain versions in f64.
 """
 
 import numpy as np
@@ -46,6 +54,92 @@ def make_cfgs(nx, ny, bc_class, *, D_=0.05, vx=0.5, vy=-0.25, **kw):
         cfg.strict_reference_compat = compat
         out.append(cfg)
     return out
+
+
+_FIX_NEUMANN, _FIX_DIRICHLET = 2, 1
+
+
+def stream_pass_emulated(load, row_bits, col_bits, ny, nx, k, weights, fixes,
+                         bc_value=0.0):
+    """One pass of the streaming core (csrc/stencil_core.cuh) emulated in
+    f64, the blocks of one segment height side by side: ``load(tr, tc)``
+    gives, for each block, window row ``tr[b]`` at the columns ``tc[b]`` as
+    the kernel's source reads them; ``row_bits(tr)`` and ``col_bits(tc)``
+    are the source's edge bits.  Asserts that every output cell is written
+    by exactly one block, and returns the (ny, nx) output."""
+    wc, wxm, wxp, wym, wyp = weights
+    fl, fr, fb, ft = fixes
+    geo = tcs.band_geometry(ny, nx, k)
+    w = geo.width
+    out = torch.zeros((ny, nx), dtype=torch.float64)
+    writes = torch.zeros((ny, nx), dtype=torch.int64)
+    lane = torch.arange(w)
+
+    def ghost(fix, a):
+        if fix == _FIX_NEUMANN:
+            return a
+        return torch.full_like(a, bc_value if fix == _FIX_DIRICHLET else 0.0)
+
+    by_rows = {}  # window rows of a block -> its (x0, y0)
+    for by in range(geo.segments):
+        for bx in range(geo.bands):
+            y0 = by * geo.rows
+            by_rows.setdefault(min(geo.rows, ny - y0) + 2 * k, []).append(
+                (bx * (w - 2 * k), y0))
+    for rows, corners in by_rows.items():
+        x0 = torch.tensor([c[0] for c in corners])
+        y0 = torch.tensor([c[1] for c in corners])
+        tc = x0[:, None] - k + lane[None, :]
+        cb = col_bits(tc)
+        x_lo, x_hi = (cb & 1).bool(), (cb & 2).bool()
+        zero = torch.zeros((len(corners), 1), dtype=torch.float64)
+        m1 = [torch.zeros(tc.shape, dtype=torch.float64) for _ in range(k)]
+        m2 = [torch.zeros(tc.shape, dtype=torch.float64) for _ in range(k)]
+        h_lo = h_hi = torch.zeros(len(corners), dtype=torch.int64)
+        keep = (lane >= k) & (lane < w - k) & (tc < nx)
+        for i in range(rows):
+            v = load(y0 - k + i, tc)
+            b = row_bits(y0 - k + i)
+            h_lo, h_hi = (h_lo << 1) | (b & 1), (h_hi << 1) | ((b >> 1) & 1)
+            for s in range(1, k + 1):
+                # Level s's row i-s: ym, c from its registers, yp from
+                # level s-1's row of this iteration, xm/xp from level
+                # s-1's row of the last iteration (the shared row).  A
+                # block without edge bits runs the same arithmetic.
+                a, ym, yp = m1[s - 1], m2[s - 1], v
+                xm, xp = torch.cat([zero, a[:, :-1]], 1), torch.cat([a[:, 1:], zero], 1)
+                ym = torch.where(((h_lo >> s) & 1).bool()[:, None], ghost(fb, a), ym)
+                yp = torch.where(((h_hi >> s) & 1).bool()[:, None], ghost(ft, a), yp)
+                xm = torch.where(x_lo, ghost(fl, a), xm)
+                xp = torch.where(x_hi, ghost(fr, a), xp)
+                r = wc * a + wym * ym + wyp * yp + wxm * xm + wxp * xp
+                m2[s - 1], m1[s - 1], v = a, v, r
+            if i >= 2 * k:
+                rr = (y0 + i - 2 * k)[:, None].expand(tc.shape)
+                out[rr[keep], tc[keep]] = v[keep]
+                writes.index_put_((rr[keep], tc[keep]), torch.ones_like(rr[keep]),
+                                  accumulate=True)
+    assert bool((writes == 1).all()), "an output cell was not written exactly once"
+    return out
+
+
+def wrap_source(u, fixes):
+    """K1's source: the wrapped global field and its edge bits."""
+    ny, nx = u.shape
+    fl, fr, fb, ft = fixes
+
+    def load(tr, tc):
+        return u[(tr % ny)[:, None], tc % nx]
+
+    def row_bits(tr):
+        g = tr % ny
+        return ((g == 0) & (fb != 0)).long() | (((g == ny - 1) & (ft != 0)).long() << 1)
+
+    def col_bits(tc):
+        g = tc % nx
+        return ((g == 0) & (fl != 0)).long() | (((g == nx - 1) & (fr != 0)).long() << 1)
+
+    return load, row_bits, col_bits
 
 
 def edge_parked(ny, nx, seed=0):
@@ -182,6 +276,86 @@ def test_wrapper_checks_and_cpu_launch_count():
         tcs.multistep_kernel_step(u.to("meta"), tcfg, 0.1, 1)
 
 
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 16, 31, 32])
+@pytest.mark.parametrize("shape", [(4096, 4096), (2048, 2048), (2009, 2001), (300, 40),
+                                   (40, 300), (8, 2048), (2048, 8), (64, 128), (1, 1),
+                                   (333, 241), (5000, 3)])
+def test_band_geometry_covers_every_output_once(shape, k):
+    """Bands of width a multiple of 32 (at most 256, more than 2k), their
+    outputs tile the width exactly once, segments (a multiple of 8 rows,
+    or the whole height) tile the height once; a shape with fewer than
+    MIN_BLOCKS blocks has 8-row segments (or its whole height) and bands
+    no narrower than 32 columns allow."""
+    ny, nx = shape
+    g = tcs.band_geometry(ny, nx, k)
+    assert g.width % 32 == 0 and 2 * k < g.width <= tcs.MAX_BAND
+    assert g.width <= max(128, 16 * k) and g.width < nx + 2 * k + 32
+    assert g.rows == ny or (g.rows % 8 == 0 and g.rows <= max(16, 8 * k))
+    out_w = g.width - 2 * k
+    assert (g.bands - 1) * out_w < nx <= g.bands * out_w
+    assert (g.segments - 1) * g.rows < ny <= g.segments * g.rows
+    if g.bands * g.segments < tcs.MIN_BLOCKS:
+        assert g.rows <= 8 and g.width - 32 <= 2 * k
+    owned = np.zeros((ny, nx), np.int64)
+    for by in range(g.segments):
+        for bx in range(g.bands):
+            owned[by * g.rows:(by + 1) * g.rows, bx * out_w:(bx + 1) * out_w] += 1
+    assert (owned == 1).all()
+
+
+def test_band_geometry_of_the_main_path():
+    """4096² at k = 8: 37 bands of 112 output columns, 64 segments of 64
+    rows; the 2048² tile: 19 x 32; K2's one step on it: 17 x 128 segments
+    of 16 rows.  Shapes with few blocks: the 512² dev grid halves its
+    segments to 8 rows; K3's 8-row and 8-column bands of a 2048² tile
+    narrow to one-warp bands and 8-row segments."""
+    assert tcs.band_geometry(4096, 4096, 8) == (128, 64, 37, 64)
+    assert tcs.band_geometry(2048, 2048, 8) == (128, 64, 19, 32)
+    assert tcs.band_geometry(2048, 2048, 1) == (128, 16, 17, 128)
+    assert tcs.band_geometry(512, 512, 8) == (128, 8, 5, 64)
+    assert tcs.band_geometry(8, 2048, 8) == (32, 8, 128, 1)
+    assert tcs.band_geometry(2048, 8, 8) == (32, 8, 1, 256)
+    assert tcs.band_geometry(64, 64, 32) == (96, 8, 2, 8)
+    with pytest.raises(ValueError, match="band geometry"):
+        tcs.band_geometry(64, 64, 33)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("bc_class", ["one_sided_y", "one_sided_x", "both_axes", "compat"])
+@pytest.mark.parametrize("shape", [(40, 300), (300, 40)])
+def test_streamed_pass_matches_plain_f64(shape, bc_class, k):
+    """K1's band/segment decomposition on awkward shapes (one band
+    narrower than the grid's width, several bands with a ragged last one,
+    ragged last segments) equals the plain pass."""
+    nx, ny = shape
+    _, tcfg = make_cfgs(nx, ny, bc_class, vx=-0.3, vy=0.6)
+    u = torch.from_numpy(edge_parked(ny, nx, seed=k))
+    fixes = [tcs._fix_code(b, tcfg.strict_reference_compat)
+             for b in (tcfg.bc.left, tcfg.bc.right, tcfg.bc.bottom, tcfg.bc.top)]
+    weights = tcs._stencil_weights(0.1, tcfg.D, tcfg.vx, tcfg.vy, tcfg.dx, tcfg.dy)
+    got = stream_pass_emulated(*wrap_source(u, fixes), ny, nx, k, weights, fixes)
+    want = tcs.multistep_pass_plain(u, tcfg, 0.1, k)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("shape, k", [((128, 64), 8), ((20, 70), 16), ((20, 70), 32),
+                                      ((241, 19), 8)])
+@pytest.mark.parametrize("bc_class", list(BC_CLASSES))
+def test_streamed_pass_matches_plain_f64_every_bc(shape, k, bc_class):
+    """128x64 at k = 8, bands wider than the grid at k = 16 and 32 (the
+    window wraps onto itself), and nx one more than a band's output width,
+    under every BC class."""
+    nx, ny = shape
+    _, tcfg = make_cfgs(nx, ny, bc_class)
+    u = torch.from_numpy(edge_parked(ny, nx, seed=nx))
+    fixes = [tcs._fix_code(b, tcfg.strict_reference_compat)
+             for b in (tcfg.bc.left, tcfg.bc.right, tcfg.bc.bottom, tcfg.bc.top)]
+    weights = tcs._stencil_weights(0.1, tcfg.D, tcfg.vx, tcfg.vy, tcfg.dx, tcfg.dy)
+    got = stream_pass_emulated(*wrap_source(u, fixes), ny, nx, k, weights, fixes)
+    want = tcs.multistep_pass_plain(u, tcfg, 0.1, k)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -190,13 +364,19 @@ def cuda_device():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape, k", [((120, 96), 8), ((20, 300), 8), ((241, 333), 8),
+                                      ((300, 40), 3), ((120, 96), 16), ((120, 96), 32)])
 @pytest.mark.parametrize("bc_class", list(BC_CLASSES))
-def test_cuda_kernel_matches_plain_on_card(cuda_device, bc_class):
-    _, tcfg = make_cfgs(120, 96, bc_class)
-    u = torch.from_numpy(edge_parked(96, 120).astype(np.float32)).to(cuda_device)
+def test_cuda_kernel_matches_plain_on_card(cuda_device, bc_class, shape, k):
+    """The streaming core's edges: a grid narrower than one band, nx one
+    more than a band's output width with a ragged last segment, several
+    bands, and k = 16 and 32."""
+    nx, ny = shape
+    _, tcfg = make_cfgs(nx, ny, bc_class)
+    u = torch.from_numpy(edge_parked(ny, nx).astype(np.float32)).to(cuda_device)
     before = tcs.multistep_kernel_step.launches
-    got = tcs.multistep_kernel_step(u, tcfg, 0.1, 8)
+    got = tcs.multistep_kernel_step(u, tcfg, 0.1, k)
     torch.cuda.synchronize(cuda_device)
     assert tcs.multistep_kernel_step.launches == before + 1
-    want = tcs.multistep_pass_plain(u, tcfg, 0.1, 8)
+    want = tcs.multistep_pass_plain(u, tcfg, 0.1, k)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)

@@ -11,6 +11,11 @@ meshes.  The JAX kernels take a halo depth rounded to their sublane tile
 (8, or 16 in bf16); the port takes the same inputs.  The CUDA kernels
 themselves are compared with the plain versions on the card
 (``chip_smoke.py`` and the ``gpu``-marked tests below).
+
+The tile sources of the streaming core (a padded region by row stride,
+the tile and its two halo slabs) are emulated after the CUDA source and
+run through ``test_torch_kernel.stream_pass_emulated``, held to the plain
+versions in f64.
 """
 
 import numpy as np
@@ -25,7 +30,7 @@ from climate_sim_tpu_torch.ops import cuda_sharded as tsh
 from climate_sim_tpu_torch.ops.step import make_interior_step
 from climate_sim_tpu_torch.parallel.mesh import make_mesh
 
-from test_torch_kernel import BC_CLASSES, make_cfgs
+from test_torch_kernel import BC_CLASSES, make_cfgs, stream_pass_emulated
 
 
 def mesh_flag_sets():
@@ -267,6 +272,112 @@ def test_interior_step_routes_kernel_values_to_k2():
     assert getattr(make_interior_step(tcfg, 0.1), "kernel", None) is None
 
 
+def _edge_bits(g, l, fix_lo, fix_hi, flag_lo, flag_hi):
+    """csrc/tile_stencil.cuh's edge_bits, for a tensor of lines."""
+    lo = (fix_lo != 0) & ((flag_lo == 1) & (g == 0) | (flag_hi == 1) & (g == l))
+    hi = (fix_hi != 0) & ((flag_hi == 1) & (g == l - 1) | (flag_lo == 1) & (g == -1))
+    return lo.long() | (hi.long() << 1)
+
+
+def tile_source(read, ny, nx, kh, fixes, flags, extent=None):
+    """K2-K5's row/column state and edge bits around a ``read(tr, cc)``
+    that takes the clamped columns (csrc/tile_stencil.cuh TileRows)."""
+    ly, lx = extent or (ny, nx)
+    fl, fr, fb, ft = fixes
+
+    def load(tr, tc):
+        return read(tr, tc.clamp(-kh, nx + kh - 1))
+
+    def row_bits(tr):
+        return _edge_bits(tr, ly, fb, ft, flags[2], flags[3])
+
+    def col_bits(tc):
+        return _edge_bits(tc, lx, fl, fr, flags[0], flags[1])
+
+    return load, row_bits, col_bits
+
+
+def region_read(padded, kh):
+    """RegionSource: region cell (tr, cc) at padded[tr + kh, cc + kh]."""
+    return lambda tr, cc: padded[(tr + kh)[:, None], cc + kh]
+
+
+def slab_read(tile, xh, yh, kh):
+    """SlabSource: the y-halo above and below the tile's rows, else the
+    tile or the x-halo by column."""
+    ny, nx = tile.shape
+
+    def read(tr, cc):
+        t = tr[:, None].expand(cc.shape)
+        above, below = t >= ny, t < 0
+        y = yh[torch.where(below, kh + t, kh + t - ny).clamp(0, 2 * kh - 1), cc + kh]
+        r = t.clamp(0, ny - 1)
+        mid = torch.where(cc < 0, xh[r, (kh + cc).clamp(0, 2 * kh - 1)],
+                          torch.where(cc >= nx, xh[r, (kh + cc - nx).clamp(0, 2 * kh - 1)],
+                                      tile[r, cc.clamp(0, nx - 1)]))
+        return torch.where(above | below, y, mid)
+
+    return read
+
+
+@pytest.mark.parametrize("bc_class", ["one_sided_y", "one_sided_x", "both_axes", "compat"])
+@pytest.mark.parametrize("shape, k, kh", [((300, 40), 3, 8), ((40, 300), 8, 8),
+                                          ((8, 100), 8, 8), ((100, 8), 8, 8),
+                                          ((64, 128), 1, 1)])
+def test_streamed_region_pass_matches_plain_f64(shape, k, kh, bc_class):
+    """K3 through a region view of a wider tensor (row stride > nx+2kh),
+    K3's k-row and k-column bands, and K2's one step (kh = 1), under every
+    mesh tile's flags, flagged and not."""
+    ny, nx = shape
+    _, tcfg = make_cfgs(nx, ny, bc_class, vx=-0.3)
+    big = torch.from_numpy(window(ny, nx + 5, kh, np.float64, seed=ny + nx))
+    padded = big[:, 2:2 + nx + 2 * kh]
+    fixes = tsh._fixes(tcfg)
+    for flags in FLAG_SETS + [tsh.NO_FLAGS]:
+        got = stream_pass_emulated(
+            *tile_source(region_read(padded, kh), ny, nx, kh, fixes, flags), ny, nx, k,
+            tsh._weights(tcfg, 0.1), fixes)
+        want = tsh.region_pass_plain(padded, tcfg, 0.1, k, ny, nx, flags, kh)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-12, msg=f"flags {flags}")
+
+
+@pytest.mark.parametrize("bc_class", ["MIX1", "one_sided_y", "one_sided_x", "compat"])
+@pytest.mark.parametrize("shape, k, kh", [((40, 300), 8, 8), ((300, 40), 3, 4),
+                                          ((64, 128), 8, 8), ((19, 241), 8, 8)])
+def test_streamed_slab_pass_matches_plain_f64(shape, k, kh, bc_class):
+    """K4 from the tile and its halo slabs, under every mesh tile's flags."""
+    my, mx = shape
+    _, tcfg = make_cfgs(mx, my, bc_class, vy=0.4)
+    w = window(my, mx, kh, np.float64, seed=my)
+    tile, xh, yh = port_slabs(w, kh)
+    fixes = tsh._fixes(tcfg)
+    for flags in FLAG_SETS:
+        got = stream_pass_emulated(
+            *tile_source(slab_read(tile, xh, yh, kh), my, mx, kh, fixes, flags), my, mx, k,
+            tsh._weights(tcfg, 0.1), fixes)
+        want = tsh.slab_pass_plain(tile, xh, yh, flags, tcfg, 0.1, k, kh)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-12, msg=f"flags {flags}")
+
+
+@pytest.mark.parametrize("bc_class", ["D4", "one_sided_y", "one_sided_x", "compat"])
+@pytest.mark.parametrize("extent", [(37, 250), (8, 8), (300, 9)])
+def test_streamed_carrier_pass_matches_plain_f64(extent, bc_class):
+    """K5 on a 300x260 carrier tile whose true extent (ly, lx) lies inside
+    it, under the flags of the edge tiles of 2x2, 1x4 and 4x1 carriers; the
+    whole tile, pad included, is compared."""
+    my, mx, k, kh = 300, 260, 8, 8
+    _, tcfg = make_cfgs(mx, my, bc_class)
+    w = window(my, mx, kh, np.float64, seed=extent[0])
+    tile, xh, yh = port_slabs(w, kh)
+    fixes = tsh._fixes(tcfg)
+    for flags in [f for f in FLAG_SETS if f[1] or f[3]]:
+        got = stream_pass_emulated(
+            *tile_source(slab_read(tile, xh, yh, kh), my, mx, kh, fixes, flags, extent),
+            my, mx, k, tsh._weights(tcfg, 0.1), fixes)
+        want = tsh.carrier_pass_plain(tile, xh, yh, (*flags, *extent), tcfg, 0.1, k, kh)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-12, msg=f"flags {flags}")
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -275,21 +386,30 @@ def cuda_device():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape, k", [((96, 120), 8), ((300, 20), 8), ((333, 241), 8),
+                                      ((2048, 8), 8), ((8, 2048), 8), ((96, 120), 16),
+                                      ((96, 120), 32)])
 @pytest.mark.parametrize("bc_class", list(BC_CLASSES))
-def test_cuda_kernels_match_plain_on_card(cuda_device, bc_class):
-    _, tcfg = make_cfgs(120, 96, bc_class)
-    w = torch.from_numpy(window(96, 120, 8, np.float32, seed=6)).to(cuda_device)
-    tile, xh, yh = (t.to(cuda_device) for t in port_slabs(w.cpu().numpy(), 8))
+def test_cuda_kernels_match_plain_on_card(cuda_device, bc_class, shape, k):
+    """K3 and K4 on tiles narrower than one band, one column wider than a
+    band's output, K3's k-column and k-row band regions (K4 where the halo
+    fits the tile), and k = 16 and 32; K2 on the same window."""
+    my, mx = shape
+    _, tcfg = make_cfgs(mx, my, bc_class)
+    w = torch.from_numpy(window(my, mx, k, np.float32, seed=6)).to(cuda_device)
+    tile, xh, yh = (t.to(cuda_device) for t in port_slabs(w.cpu().numpy(), k))
     for flags in FLAG_SETS:
         n3, n4 = tsh.tile_region_multistep.launches, tsh.sharded_tile_slab_multistep.launches
-        got3 = tsh.tile_region_multistep(w, flags, tcfg, 0.1, 8, 96, 120, khalo=8)
-        got4 = tsh.sharded_tile_slab_multistep(tile, xh, yh, flags, tcfg, 0.1, 8, khalo=8)
+        got3 = tsh.tile_region_multistep(w, flags, tcfg, 0.1, k, my, mx, khalo=k)
         torch.cuda.synchronize(cuda_device)
         assert tsh.tile_region_multistep.launches == n3 + 1
-        assert tsh.sharded_tile_slab_multistep.launches == n4 + 1
-        want = tsh.region_pass_plain(w, tcfg, 0.1, 8, 96, 120, flags, 8)
+        want = tsh.region_pass_plain(w, tcfg, 0.1, k, my, mx, flags, k)
         torch.testing.assert_close(got3, want, rtol=0, atol=1e-5)
-        torch.testing.assert_close(got4, want, rtol=0, atol=1e-5)
-    up = w[7:-7, 7:-7].contiguous()
+        if k <= min(my, mx):
+            got4 = tsh.sharded_tile_slab_multistep(tile, xh, yh, flags, tcfg, 0.1, k, khalo=k)
+            torch.cuda.synchronize(cuda_device)
+            assert tsh.sharded_tile_slab_multistep.launches == n4 + 1
+            torch.testing.assert_close(got4, want, rtol=0, atol=1e-5)
+    up = w[k - 1:-(k - 1), k - 1:-(k - 1)].contiguous()
     torch.testing.assert_close(tsh.prepadded_kernel_step(up, tcfg, 0.1),
                                tsh.prepadded_step_plain(up, tcfg, 0.1), rtol=0, atol=1e-5)
