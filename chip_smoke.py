@@ -7,7 +7,7 @@ Phases, each of which raises on failure (nothing is caught):
 1. the device: its name, and its name and power limit from nvidia-smi;
 2. the build of K1-K5 (csrc/*.cu) with nvcc, or a cache hit, with each
    kernel instantiation's registers and spills (a spill in float32 or
-   bfloat16 fails);
+   bfloat16 fails), and of the native snapshot writer;
 3. K1 against its plain PyTorch version on the card, over shapes (the
    streaming core's edges among them: a grid narrower than one band, nx
    one more than a band's output width, ny not a multiple of the segment
@@ -41,7 +41,14 @@ Phases, each of which raises on failure (nothing is caught):
 8. the per-step sharded path (K2) on a 2x2 mesh at 4096², 100 steps,
    held against the slab path and against K1; the per-step path on
    remainder tiles at 4001² on 2x2 (torch ops, and K2), 1000 steps,
-   against K1;
+   against K1; then the multi-process driver (``--distributed``, one
+   process per rank, gloo between ranks that share the card): phase 7's
+   bench_4096 slab and 4001² carrier runs on 4 ranks, its overlap run on
+   2 ranks of 2 tiles, and a 4-rank restart from the slab run's file, each
+   file byte-identical to its single-process counterpart, the launches
+   summed over the ranks equal to the pass schedule, the log on rank 0
+   only (and, with four cards, the slab and carrier runs one rank per card
+   over NCCL beside the single-process mesh over the four cards);
 9. K2-K5 per pass (launches replayed from a CUDA graph, so the card's
    time and not the wrappers' host time is measured) beside their plain
    versions (K5 on a 2009x2001 carrier
@@ -56,6 +63,10 @@ Phases, each of which raises on failure (nothing is caught):
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 repository beside it, the script exits non-zero and prints no result.
+
+``python3 chip_smoke.py --multiprocess-only`` runs phases 1 and 2, the
+three phase-7 runs that the multi-process runs are held to, and the
+multi-process runs (with four cards, the NCCL runs too).
 """
 
 from __future__ import annotations
@@ -197,6 +208,13 @@ def phase_build():
     print(f"[build] {os.path.relpath(kl.path, HERE)}: {how}"
           f" ({time.perf_counter() - t0:.1f} s with load)")
     res = kernel_resources(kl.log)
+    # The native snapshot writer builds with the host compiler; a fallback
+    # to the Python codec on the card would be a failure, not a warning.
+    from climate_sim_tpu_torch.io import native
+
+    native.load_library()
+    print(f"[build] {os.path.relpath(native.library_path(), HERE)}: the native snapshot"
+          " writer loaded")
     for kern, dtype, levels, regs, st, ld in sorted(res):
         spill = f"spills {st} B stored, {ld} B loaded" if st or ld else "no spills"
         print(f"[build] {kern} {dtype} {levels} levels: {regs} registers, {spill}")
@@ -711,7 +729,7 @@ def phase_sharded_run(torch, device, label, cfg_path, extra, mesh_xy, kernel, tm
     print(f"[sharded:{label}] {expect_snaps} snapshots + final read back; vs the"
           f" single-device K1 run: final field max abs err {err:.3g}, every snapshot"
           f" {snap_err:.3g} (tol {SHARDED_ATOL})")
-    return counts[kernel], err
+    return counts[kernel], err, cfg.resolved_output_path()
 
 
 def bench_config(n):
@@ -802,6 +820,201 @@ def phase_padded_per_step(torch, device):
               f" {[tuple(t.shape) for row in tiles for t in row]}, {steps} steps, kernel={kernel}:"
               f" K2 launches {counts['K2']}; vs K1 max abs err {err:.3g} (tol {SHARDED_ATOL})")
     return launches
+
+
+# A rank of a multi-process run: the port's CLI (one tile, the rank's own
+# card), or run_simulation on ``tiles`` tiles of that card; prints the
+# rank's launch counts, which start at 0 in the fresh process.
+RANK_WORKER = """
+import json, sys
+rank, port, nproc, tiles = (int(a) for a in sys.argv[1:5])
+sys.path.insert(0, {here!r})
+import chip_smoke
+from climate_sim_tpu_torch.runtime import cli, distributed, driver
+argv = ["--distributed=127.0.0.1:%d,%d,%d" % (port, nproc, rank), *sys.argv[5:]]
+chip_smoke.reset_counts()
+if tiles == 1:
+    rc = cli.main(argv)
+else:
+    import torch
+    from climate_sim_tpu_torch.config import extract_config_path, merged_config
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    driver.run_simulation(merged_config(extract_config_path(argv), argv), [dev] * tiles)
+    distributed.shutdown()
+    rc = 0
+print("RANK_COUNTS " + json.dumps(chip_smoke.read_counts()), flush=True)
+sys.exit(rc)
+""".format(here=HERE)
+RANK_TIMEOUT_S = 300
+# The multi-process runs: (label, config, overrides, ranks, tiles per rank,
+# kernel).  Their overrides are those of phase 7's run of the same config
+# (phase_sharded_run), so the files are held to phase 7's, byte for byte.
+MP_RUNS = (
+    ("bench_4096_4_ranks_slab", BENCH_CFG, BENCH_STEPS, 4, 1, "K4"),
+    (f"bench_{CARRIER_GRID}_4_ranks_carrier", BENCH_CFG,
+     [*BENCH_STEPS, f"--nx={CARRIER_GRID}", f"--ny={CARRIER_GRID}"], 4, 1, "K5"),
+    ("bench_4096_2_ranks_x_2_tiles_overlap", BENCH_CFG, [*BENCH_STEPS, "--halo_overlap=true"],
+     2, 2, "K3"),
+)
+RESTART_STEPS = ["--steps=200", "--out_every=100"]
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def one_card_env():
+    """The environment that shows the ranks only this process's first
+    card, so that they share it."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    return {"CUDA_VISIBLE_DEVICES": visible.split(",")[0] if visible else "0"}
+
+
+def run_ranks(nproc, tiles, args, env=None, timeout=RANK_TIMEOUT_S):
+    """``nproc`` ranks of RANK_WORKER on 127.0.0.1, all started together,
+    with ``env`` added to this process's environment; returns [(exit code,
+    stdout, stderr, launch counts)].  Every rank is killed if the group
+    outlasts ``timeout``."""
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, "-c", RANK_WORKER, str(i), str(port),
+                               str(nproc), str(tiles), *args], cwd=HERE,
+                              env={**os.environ, **(env or {})},
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for i in range(nproc)]
+    deadline = time.monotonic() + timeout
+    results = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            m = re.search(r"^RANK_COUNTS (.*)$", out, re.M)
+            results.append((p.returncode, out, err, json.loads(m.group(1)) if m else None))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return results
+
+
+def check_ranks(label, results, transport):
+    """Every rank exited 0 with its counts; only rank 0 logged (banner,
+    transport, timing); no rank fell back from the native writer.  Returns
+    rank 0's stdout and the launch counts summed over the ranks."""
+    for r, (rc, out, err, counts) in enumerate(results):
+        if rc != 0 or counts is None:
+            fail(f"{label}: rank {r} exit code {rc}:\n{out[-2000:]}\n{err[-3000:]}")
+        if "native snapshot writer unavailable" in err:
+            fail(f"{label}: rank {r} fell back to the Python codec: {err[-1000:]}")
+        logged = [ln for ln in out.splitlines() if not ln.startswith("RANK_COUNTS ")]
+        if r and logged:
+            fail(f"{label}: rank {r} logged {logged[:3]}")
+    out0 = results[0][1]
+    for want in ("climate-sim-tpu", f"transport: {transport}", "timing: total_max="):
+        if want not in out0:
+            fail(f"{label}: rank 0 did not log {want!r}")
+    totals = {n: sum(res[3][n] for res in results) for n in KERNEL_NAMES}
+    return out0, totals
+
+
+def same_file(label, got, want):
+    import filecmp
+
+    if not filecmp.cmp(got, want, shallow=False):
+        fail(f"{label}: {got} is not byte-identical to {want}")
+
+
+def phase_multiprocess(torch, device, tmp, refs):
+    """The multi-process driver through ``--distributed=127.0.0.1:PORT,N,I``
+    on the card: bench_4096 on 4 ranks (slab, K4), the carrier at 4001² on
+    4 ranks (K5), 2 ranks x [cuda:0, cuda:0] with halo_overlap (K3), each
+    with output on, and a 4-rank restart from the slab run's file.  Ranks
+    on one card exchange over gloo through pinned host buffers.  Each run:
+    exit 0 on every rank, the banner and timing on rank 0 only, no writer
+    fallback, launches summed over the ranks equal to the pass schedule
+    times the tiles (every other kernel 0), and a snapshot file
+    byte-identical to the single-process mesh run of the same config
+    (``refs[label]``, phase 7's; or the restart's, made here).  With four
+    or more cards, the slab and carrier runs also go one rank per card over
+    NCCL, beside the single-process mesh over four cards.  Returns the
+    launch counts and the throughput lines."""
+    from climate_sim_tpu_torch.config import merged_config
+    from climate_sim_tpu_torch.runtime import driver
+
+    launches = {n: 0 for n in KERNEL_NAMES}
+    rates = {}
+    gloo = "gloo (host-staged; ranks share a card)"
+
+    def run(label, cfg_path, args, nproc, tiles, kernel, transport, want_file):
+        """One multi-process run, checked; gloo runs share the first card."""
+        px, py = 2, 2
+        full = [f"--config={cfg_path}", *args, f"--mesh.x={px}", f"--mesh.y={py}",
+                "--kernel=pallas", f"--output.dir={os.path.join(tmp, label)}",
+                "--write_final=true"]
+        cfg = merged_config(cfg_path, full)
+        t0 = time.perf_counter()
+        results = run_ranks(nproc, tiles, full, one_card_env() if transport == gloo else None)
+        wall = time.perf_counter() - t0
+        out0, counts = check_ranks(label, results, transport)
+        m = re.search(r"^passes: timed=(\d+) warmup=(\d+)$", out0, re.M)
+        expect = expected_tile_passes(cfg, px, py)
+        per_pass = 5 if kernel == "K3" else 1
+        want = {name: 0 for name in KERNEL_NAMES}
+        want[kernel] = per_pass * (expect + int(m.group(2))) * px * py
+        if int(m.group(1)) != expect or counts != want:
+            fail(f"{label}: launches over the ranks {counts} != {want}")
+        same_file(label, cfg.resolved_output_path(), want_file)
+        rate = re.search(r"^throughput: (.*)$", out0, re.M).group(1)
+        timing = re.search(r"^timing: (.*)$", out0, re.M).group(1)
+        print(f"[multiprocess:{label}] {nproc} ranks x {tiles} tile(s), transport"
+              f" {transport}: exit 0 on every rank, {kernel} launches {counts[kernel]} ="
+              f" {per_pass} x ({expect} timed + {m.group(2)} warm-up passes) x {px * py}"
+              f" tiles; file byte-identical to the single-process mesh run; timing:"
+              f" {timing}; throughput: {rate}; {wall:.1f} s with process start")
+        launches[kernel] += counts[kernel]
+        rates[label] = rate
+        return cfg.resolved_output_path()
+
+    slab_file = None
+    for label, cfg_path, extra, nproc, tiles, kernel in MP_RUNS:
+        ref = refs.get(label)
+        if ref is None:
+            raise SystemExit(f"chip_smoke: no single-process reference for {label}")
+        path = run(label, cfg_path, extra, nproc, tiles, kernel, gloo, ref)
+        slab_file = slab_file or path
+
+    # The restart: 4 ranks read their regions of the slab run's last record.
+    restart = [*MP_RUNS[0][2], *RESTART_STEPS, "--ic.mode=file", f"--ic.path={slab_file}"]
+    ref_args = [*restart, "--mesh.x=2", "--mesh.y=2", "--kernel=pallas", "--write_final=true",
+                f"--output.dir={os.path.join(tmp, 'restart_single')}"]
+    ref_cfg = merged_config(BENCH_CFG, ref_args)
+    with contextlib.redirect_stdout(io.StringIO()):
+        driver.run_simulation(ref_cfg, [device] * 4)
+    run("bench_4096_4_ranks_restart", BENCH_CFG, restart, 4, 1, "K4", gloo,
+        ref_cfg.resolved_output_path())
+
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 4:
+        cards = [torch.device("cuda", i) for i in range(4)]
+        for label, cfg_path, extra, nproc, tiles, kernel in MP_RUNS[:2]:
+            one = f"{label}_4_cards_single_process"
+            args = [*extra, "--mesh.x=2", "--mesh.y=2", "--kernel=pallas", "--write_final=true",
+                    f"--output.dir={os.path.join(tmp, one)}"]
+            cfg = merged_config(cfg_path, args)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                driver.run_simulation(cfg, cards)
+            rates[one] = re.search(r"^throughput: (.*)$", buf.getvalue(), re.M).group(1)
+            print(f"[multiprocess:{one}] throughput: {rates[one]}")
+            run(f"{label}_nccl", cfg_path, extra, 4, 1, kernel, "nccl",
+                cfg.resolved_output_path())
+    else:
+        print(f"[multiprocess] {n_cards} card(s): the one-rank-per-card NCCL runs need 4")
+    return launches, rates
 
 
 def events_ms(torch, device, fn, reps):
@@ -1040,6 +1253,26 @@ def phase_profile(torch, device, tmp, label, args, n_devices, kernel):
     return walls, total_ms
 
 
+def multiprocess_only(torch, device) -> int:
+    """``python3 chip_smoke.py --multiprocess-only``: phase 7's three
+    references and the multi-process phase alone (on four cards, the NCCL
+    runs with them); ends with a JSON line of the phase's launches and
+    throughput lines, not the ``ok`` line of a full run."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        refs = {}
+        for run, ref in zip(MP_RUNS, ("bench_4096_2x2_slab", CARRIER_RUNS[0][0],
+                                      "bench_4096_2x2_overlap")):
+            label, cfg_path, extra, _, _, kernel = run
+            refs[label] = phase_sharded_run(torch, device, ref, cfg_path, extra, (2, 2),
+                                            kernel, tmp)[2]
+        launches, rates = phase_multiprocess(torch, device, tmp, refs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"multiprocess": {"launches": launches, "throughput": rates}}))
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "climate_sim_tpu_torch")):
         print("chip_smoke: the climate_sim_tpu_torch package is not beside"
@@ -1057,6 +1290,8 @@ def main() -> int:
 
     name, smi = phase_device(torch)
     phase_build()
+    if sys.argv[1:] == ["--multiprocess-only"]:
+        return multiprocess_only(torch, device)
     cases, worst = phase_kernel_vs_plain(torch, device)
     tile_cases, tile_worst = phase_tile_kernels_vs_plain(torch, device)
     tile_cases["K5"], tile_worst["K5"] = phase_carrier_kernel_vs_plain(torch, device)
@@ -1068,6 +1303,7 @@ def main() -> int:
             ["--steps=1000", "--out_every=500"], tmp,
         )
         launches["K1"] += phase_main_path(torch, device, "dev", DEV_CFG, [], tmp)
+        files = {}
         for label, cfg_path, extra, mesh_xy, kernel in (
             ("bench_4096_2x2_slab", BENCH_CFG, BENCH_STEPS, (2, 2), "K4"),
             ("bench_4096_2x2_overlap", BENCH_CFG, [*BENCH_STEPS, "--halo_overlap=true"],
@@ -1076,10 +1312,18 @@ def main() -> int:
             ("dev_4x1", DEV_CFG, [], (4, 1), "K4"),
             *((*run, "K5") for run in CARRIER_RUNS),
         ):
-            launches[kernel] += phase_sharded_run(
-                torch, device, label, cfg_path, extra, mesh_xy, kernel, tmp)[0]
+            n, _, files[label] = phase_sharded_run(
+                torch, device, label, cfg_path, extra, mesh_xy, kernel, tmp)
+            launches[kernel] += n
         launches["K2"] += phase_per_step(torch, device)[0]
         launches["K2"] += phase_padded_per_step(torch, device)
+        # The multi-process runs, each held to phase 7's run of its config.
+        refs = dict(zip((run[0] for run in MP_RUNS),
+                        (files["bench_4096_2x2_slab"], files[CARRIER_RUNS[0][0]],
+                         files["bench_4096_2x2_overlap"])))
+        mp_launches, _ = phase_multiprocess(torch, device, tmp, refs)
+        for n in KERNEL_NAMES:
+            launches[n] += mp_launches[n]
         k1_times = phase_timing(torch, device)
         tile_times, _, bounds, library = phase_tile_timing(torch, device)
         phase_profile(torch, device, tmp, f"bench_{BENCH_GRID} single device",

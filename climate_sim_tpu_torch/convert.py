@@ -7,7 +7,8 @@ the port's :class:`SimConfig` and the field as a tensor on the given device,
 in the config's precision; :func:`from_reference_sharded` returns the field
 as the tile grid of a mesh instead (the JAX field is then ``np.asarray`` of
 a sharded ``jax.Array``), and :func:`.parallel.mesh.gather_field` is its
-inverse.  It imports nothing from ``climate_sim_tpu``.
+inverse; :func:`from_reference_local` returns only the tiles that one rank
+of a multi-process mesh owns.  It imports nothing from ``climate_sim_tpu``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from .config import SimConfig, load_yaml_dict
 from .ops.init import DTYPES
-from .parallel.mesh import Mesh, Tiles, shard_field
+from .parallel.mesh import Mesh, Tiles, local_windows, shard_field
 
 
 def from_reference(
@@ -51,3 +52,17 @@ def from_reference_sharded(
     ``embed`` instead."""
     cfg, t = from_reference(cfg_dict, u, "cpu")
     return cfg, shard_field(t, mesh)
+
+
+def from_reference_local(
+    cfg_dict: Dict[str, Any], u, mesh: Mesh
+) -> Tuple[SimConfig, Tiles]:
+    """The rank-local form of :func:`from_reference_sharded`: (port
+    config, this rank's tiles of ``mesh``, None for another rank's) from a
+    JAX config dict and the global field as numpy, each tile cut from its
+    global window (:func:`.parallel.mesh.local_windows`)."""
+    cfg, t = from_reference(cfg_dict, u, "cpu")
+    tiles = [[None] * mesh.shape["x"] for _ in range(mesh.shape["y"])]
+    for (y, x), (y0, y1, x0, x1) in local_windows(mesh, cfg.ny, cfg.nx).items():
+        tiles[y][x] = t[y0:y1, x0:x1].to(mesh.devices[y][x]).contiguous()
+    return cfg, tiles

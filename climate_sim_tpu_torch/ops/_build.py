@@ -11,11 +11,18 @@ name carries the hash.  Nothing here imports
 
 ``nvcc`` is looked up in ``$CUDA_HOME/bin``, then on ``PATH``, then in
 ``/usr/local/cuda/bin``; without it the build raises.
+
+Processes that start together (the ranks of a multi-process run) build
+once: the build runs under an inter-process file lock on the build
+directory (:func:`build_lock`, shared with the native snapshot writer's
+build), and a process that waited for the lock finds the library built.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -85,6 +92,18 @@ def find_nvcc() -> str:
     )
 
 
+@contextlib.contextmanager
+def build_lock():
+    """Hold the build directory's inter-process lock (``flock``)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
 def sources_hash(sources: List[str]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sources:
@@ -127,6 +146,35 @@ def _declare(lib: ctypes.CDLL) -> None:
     err.restype = ctypes.c_char_p
 
 
+def _build(sources: List[str], path: str):
+    """Compile each source with its own ``nvcc``, all started together,
+    and link them into ``path``; returns (seconds, nvcc's output)."""
+    nvcc = find_nvcc()
+    tmp = f"{path}.{os.getpid()}.tmp"
+    objects = [f"{tmp}.{i}.o" for i in range(len(sources))]
+    t0 = time.perf_counter()
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(sources, objects)
+    ]
+    outs = [(p.communicate()[0], p.returncode) for p in procs]
+    log = "".join(out for out, _ in outs)
+    rc = next((rc for _, rc in outs if rc), 0)
+    if rc == 0:
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objects],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        rc = link.returncode
+    for obj in objects:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}):\n{log}")
+    os.replace(tmp, path)  # atomic: a reader never sees a partial file
+    return time.perf_counter() - t0, log
+
+
 @functools.lru_cache(maxsize=1)
 def load_library() -> KernelLibrary:
     """Build the library if no build of the current sources exists, then
@@ -136,32 +184,10 @@ def load_library() -> KernelLibrary:
     path = os.path.join(BUILD_DIR, f"libclimate_kernels_{digest}.so")
     built, seconds, log = False, 0.0, ""
     if not os.path.exists(path):
-        nvcc = find_nvcc()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        objects = [f"{tmp}.{i}.o" for i in range(len(sources))]
-        t0 = time.perf_counter()
-        procs = [
-            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src, obj in zip(sources, objects)
-        ]
-        outs = [(p.communicate()[0], p.returncode) for p in procs]
-        log = "".join(out for out, _ in outs)
-        rc = next((rc for _, rc in outs if rc), 0)
-        if rc == 0:
-            link = subprocess.run([nvcc, "-shared", "-o", tmp, *objects],
-                                  capture_output=True, text=True)
-            log += link.stdout + link.stderr
-            rc = link.returncode
-        for obj in objects:
-            if os.path.exists(obj):
-                os.remove(obj)
-        seconds = time.perf_counter() - t0
-        if rc != 0:
-            raise RuntimeError(f"nvcc failed ({rc}):\n{log}")
-        os.replace(tmp, path)  # atomic: a reader never sees a partial file
-        built = True
+        with build_lock():
+            if not os.path.exists(path):  # else another process built it meanwhile
+                seconds, log = _build(sources, path)
+                built = True
     lib = ctypes.CDLL(path)
     _declare(lib)
     return KernelLibrary(lib=lib, path=path, built=built, seconds=seconds, log=log)

@@ -14,6 +14,13 @@ the edge tiles receive zeros, which the BC logic (per step) or the
 kernels' edge rule (multi-step) never read as values.  ``mesh.copies``
 counts the payloads delivered.
 
+Across processes, every inter-tile payload goes through :func:`_deliver`:
+a pair of tiles of one rank stays a peer copy, and the pairs that cross
+ranks become one batch of sends and receives per exchange on the mesh's
+transport (:class:`..runtime.distributed.Transport`).  Every rank walks
+all tiles in one order and computes only its own: a rank's tile grid
+holds ``None`` for another rank's tile.
+
 Exchange order, as in the JAX package: x faces first, then y faces at the
 x-extended width, so corner ghosts hold the diagonal neighbours' data.
 
@@ -40,7 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -74,8 +81,43 @@ def axis_wrap_flags(cfg: SimConfig) -> Tuple[bool, bool]:
 
 
 def _tilewise(mesh: Mesh, fn: Callable[[int, int], torch.Tensor]) -> Tiles:
-    return [[fn(y, x) for x in range(mesh.shape["x"])]
+    """``fn(y, x)`` for each of this process's tiles, None for the rest."""
+    return [[fn(y, x) if mesh.is_local(y, x) else None for x in range(mesh.shape["x"])]
             for y in range(mesh.shape["y"])]
+
+
+Move = Tuple[Tuple[int, int], Tuple[int, int], Optional[tuple]]
+
+
+def _deliver(parts: Tiles, mesh: Mesh, moves: Sequence[Move], out: Tiles) -> None:
+    """For each ``(src, dst, key)`` of ``moves``, ``parts`` of tile src into
+    ``out`` at dst, on dst's device: a peer copy when both tiles are this
+    process's, else a receive shaped like dst's own part or a send, all of
+    them one batch of the mesh's transport.  ``mesh.copies[key]`` counts
+    the payloads this process receives (a None key is not counted).
+
+    Every rank walks the same moves in the same order, so the batches
+    match; a tag of the batch's round and the destination tile's index
+    tells two payloads between one pair of ranks apart."""
+    px = mesh.shape["x"]
+    base = mesh.rounds * mesh.size
+    mesh.rounds = (mesh.rounds + 1) % 4096
+    sends, recvs, slots = [], [], []
+    for (sy, sx), (dy, dx), key in moves:
+        tag = base + dy * px + dx
+        if mesh.is_local(dy, dx):
+            if key is not None:
+                mesh.copies[key] += 1
+            if mesh.is_local(sy, sx):
+                out[dy][dx] = parts[sy][sx].to(mesh.devices[dy][dx], non_blocking=True)
+            else:
+                recvs.append((parts[dy][dx], mesh.owner(sy, sx), tag))
+                slots.append((dy, dx))
+        elif mesh.is_local(sy, sx):
+            sends.append((parts[sy][sx], mesh.owner(dy, dx), tag))
+    if sends or recvs:
+        for (dy, dx), t in zip(slots, mesh.transport.exchange(sends, recvs)):
+            out[dy][dx] = t
 
 
 def _pshift(parts: Tiles, mesh: Mesh, axis: str, shift: int,
@@ -86,22 +128,21 @@ def _pshift(parts: Tiles, mesh: Mesh, axis: str, shift: int,
     size-1 wrapping axis delivers each tile its own part (no copy); a
     size-1 non-wrapping axis has no neighbour, so zeros."""
     n = mesh.shape[axis]
-
-    def recv(y: int, x: int) -> torch.Tensor:
-        own = parts[y][x]
-        i = x if axis == "x" else y
-        src = i - shift
-        if n == 1:
-            return own if wrap else torch.zeros_like(own)
-        wrapped = not 0 <= src < n
-        if wrapped and not wrap:
-            return torch.zeros_like(own)
-        src %= n
-        sy, sx = (y, src) if axis == "x" else (src, x)
-        mesh.copies[(axis, wrapped)] += 1
-        return parts[sy][sx].to(mesh.devices[y][x], non_blocking=True)
-
-    return _tilewise(mesh, recv)
+    out = _tilewise(mesh, lambda y, x: None)
+    moves = []
+    for y in range(mesh.shape["y"]):
+        for x in range(mesh.shape["x"]):
+            src = (x if axis == "x" else y) - shift
+            wrapped = not 0 <= src < n
+            if n == 1 or (wrapped and not wrap):
+                if mesh.is_local(y, x):
+                    own = parts[y][x]
+                    out[y][x] = own if n == 1 and wrap else torch.zeros_like(own)
+                continue
+            src %= n
+            moves.append(((y, src) if axis == "x" else (src, x), (y, x), (axis, wrapped)))
+    _deliver(parts, mesh, moves, out)
+    return out
 
 
 def exchange_and_pad(tiles: Tiles, cfg: SimConfig, mesh: Mesh,
@@ -255,7 +296,8 @@ def build_sharded_overlap_advance(cfg: SimConfig, mesh: Mesh, dt: float):
     The interior of a tile needs no halo data for k steps, so each pass:
 
     1. on a side stream per device, exchanges the k-wide faces and
-       assembles the four band windows;
+       assembles the four band windows (across ranks, the exchange's batch
+       is issued on the side stream, which waits for it);
     2. meanwhile, on the current stream, K3 advances the interior (rows and
        columns [k, m-k)) straight from the tile, with no fixups (the
        counterpart of the reference's Isend/Irecv overlapped with interior
@@ -298,32 +340,30 @@ def build_sharded_overlap_advance(cfg: SimConfig, mesh: Mesh, dt: float):
             wins = _tilewise(mesh, lambda y, x: windows(
                 tiles[y][x], *(p[y][x] for p in parts), kk))
         out = _tilewise(mesh, lambda y, x: torch.empty_like(tiles[y][x]))
-        for y in range(mesh.shape["y"]):
-            for x in range(mesh.shape["x"]):
-                tile_region_multistep(
-                    tiles[y][x], NO_FLAGS, cfg, dt, kk, my - 2 * kk,
-                    mx - 2 * kk, flagged=False, khalo=kk,
-                    out=out[y][x][kk:my - kk, kk:mx - kk],
-                )
+        for y, x in mesh.local_tiles():
+            tile_region_multistep(
+                tiles[y][x], NO_FLAGS, cfg, dt, kk, my - 2 * kk,
+                mx - 2 * kk, flagged=False, khalo=kk,
+                out=out[y][x][kk:my - kk, kk:mx - kk],
+            )
         for dev, s in side.items():
             torch.cuda.current_stream(dev).wait_stream(s)
-        for y in range(mesh.shape["y"]):
-            for x in range(mesh.shape["x"]):
-                l_, r_, b_, t_ = mesh.edge_flags(y, x)
-                bot, top, left, right = wins[y][x]
-                if side:
-                    tiles[y][x].record_stream(side[tiles[y][x].device])
-                    for w in wins[y][x]:
-                        w.record_stream(torch.cuda.current_stream(w.device))
-                o = out[y][x]
-                for win, flags, ny_r, nx_r, region in (
-                    (bot, (l_, r_, b_, 0), kk, mx, o[:kk]),
-                    (top, (l_, r_, 0, t_), kk, mx, o[my - kk:]),
-                    (left, (l_, 0, 0, 0), my - 2 * kk, kk, o[kk:my - kk, :kk]),
-                    (right, (0, r_, 0, 0), my - 2 * kk, kk, o[kk:my - kk, mx - kk:]),
-                ):
-                    tile_region_multistep(win, flags, cfg, dt, kk, ny_r, nx_r,
-                                          khalo=kk, out=region)
+        for y, x in mesh.local_tiles():
+            l_, r_, b_, t_ = mesh.edge_flags(y, x)
+            bot, top, left, right = wins[y][x]
+            if side:
+                tiles[y][x].record_stream(side[tiles[y][x].device])
+                for w in wins[y][x]:
+                    w.record_stream(torch.cuda.current_stream(w.device))
+            o = out[y][x]
+            for win, flags, ny_r, nx_r, region in (
+                (bot, (l_, r_, b_, 0), kk, mx, o[:kk]),
+                (top, (l_, r_, 0, t_), kk, mx, o[my - kk:]),
+                (left, (l_, 0, 0, 0), my - 2 * kk, kk, o[kk:my - kk, :kk]),
+                (right, (0, r_, 0, 0), my - 2 * kk, kk, o[kk:my - kk, mx - kk:]),
+            ):
+                tile_region_multistep(win, flags, cfg, dt, kk, ny_r, nx_r,
+                                      khalo=kk, out=region)
         return out
 
     advance = _make_chunk_advance(tile_pass, k)
@@ -417,14 +457,15 @@ def _axis_mode(lo: BCType, hi: BCType, compat: bool) -> str:
     return "low" if lo == per else "high"
 
 
-def _send(part: torch.Tensor, mesh: Mesh, src: Tuple[int, int],
-          dst: Tuple[int, int], axis: str) -> torch.Tensor:
-    """A wrap-head payload from tile ``src`` to tile ``dst`` (y, x), on the
-    destination's device with :func:`_pshift`'s peer-copy ordering;
+def _send(parts: Tiles, mesh: Mesh, src: Tuple[int, int],
+          dst: Tuple[int, int], axis: str) -> Optional[torch.Tensor]:
+    """A wrap-head payload, ``parts`` of tile ``src``, on the device of tile
+    ``dst`` (y, x) through :func:`_deliver` (the receive is shaped like
+    dst's own part); None where dst is another rank's.
     ``mesh.copies[(axis, "head")]`` counts those between two tiles."""
-    if src != dst:
-        mesh.copies[(axis, "head")] += 1
-    return part.to(mesh.devices[dst[0]][dst[1]], non_blocking=True)
+    out = _tilewise(mesh, lambda y, x: None)
+    _deliver(parts, mesh, [(src, dst, (axis, "head") if src != dst else None)], out)
+    return out[dst[0]][dst[1]]
 
 
 def build_carrier_slab_advance(cfg: SimConfig, mesh: Mesh, dt: float):
@@ -474,8 +515,10 @@ def build_carrier_slab_advance(cfg: SimConfig, mesh: Mesh, dt: float):
     Returns None when an axis cannot stage, or when the carrier would hold
     more than twice the grid's points; the driver then takes
     :func:`build_padded_advance`.  The advance carries ``embed`` (global
-    field -> carrier tiles), ``extract`` (carrier tiles -> grid of views of
-    the true extent, all-pad tiles dropped), ``carrier_shape``,
+    field -> carrier tiles), ``embed_from`` (carrier tiles from a function
+    of each tile's true-extent window, the multi-process IC), ``windows``
+    (those windows of the local tiles), ``extract`` (carrier tiles -> grid
+    of views of the true extent, all-pad tiles dropped), ``carrier_shape``,
     ``flags6(y, x)`` (tile (y, x)'s K5 flags), ``pass_count``,
     ``steps_per_pass`` (KH), ``kernel = "K5"`` and ``path = "carrier"``.
     """
@@ -512,26 +555,27 @@ def build_carrier_slab_advance(cfg: SimConfig, mesh: Mesh, dt: float):
         return (int(x == 0), int(x == e_x), int(y == 0), int(y == e_y), ly, lx)
 
     def tile_pass(c: Tiles, kk: int) -> Tiles:
+        local = mesh.local_tiles()
         if damp_pads:
-            for y in range(py):
-                for x in range(px):
-                    c[y][x][extent(y, e_y, my, ly):].zero_()
-                    c[y][x][:, extent(x, e_x, mx, lx):].zero_()
-        if tail_y:
-            for t in c[py - 1]:
-                t[my - KH:].copy_(t[ly - KH:ly])
-        if tail_x:
-            for row in c:
-                row[px - 1][:, mx - KH:].copy_(row[px - 1][:, lx - KH:lx])
+            for y, x in local:
+                c[y][x][extent(y, e_y, my, ly):].zero_()
+                c[y][x][:, extent(x, e_x, mx, lx):].zero_()
+        for y, x in local:
+            if tail_y and y == py - 1:
+                c[y][x][my - KH:].copy_(c[y][x][ly - KH:ly])
+            if tail_x and x == px - 1:
+                c[y][x][:, mx - KH:].copy_(c[y][x][:, lx - KH:lx])
         # Round 1: x faces, taken into a fresh xhalo before the x head
         # patches the edge tiles.
         gl = _pshift(_tilewise(mesh, lambda y, x: c[y][x][:, -KH:]), mesh, "x", +1, wrap_x)
         gr = _pshift(_tilewise(mesh, lambda y, x: c[y][x][:, :KH]), mesh, "x", -1, wrap_x)
         xhalo = _tilewise(mesh, lambda y, x: torch.cat([gl[y][x], gr[y][x]], dim=1))
         if head_x:
+            heads = _tilewise(mesh, lambda y, x: c[y][x][:, :KH])
             for y in range(py):
-                head = _send(c[y][0][:, :KH], mesh, (y, 0), (y, e_x), "x")
-                c[y][e_x][:, lx:lx + KH].copy_(head)
+                head = _send(heads, mesh, (y, 0), (y, e_x), "x")
+                if head is not None:
+                    c[y][e_x][:, lx:lx + KH].copy_(head)
         # Round 2: the x-extended rows.
         def rows(sl: slice) -> Tiles:
             return _tilewise(mesh, lambda y, x: torch.cat(
@@ -543,7 +587,9 @@ def build_carrier_slab_advance(cfg: SimConfig, mesh: Mesh, dt: float):
         yhalo = _tilewise(mesh, lambda y, x: torch.cat([gb[y][x], gt[y][x]], dim=0))
         if head_y:
             for x in range(px):
-                head = _send(bottom[0][x], mesh, (0, x), (e_y, x), "y")
+                head = _send(bottom, mesh, (0, x), (e_y, x), "y")
+                if head is None:
+                    continue
                 c[e_y][x][ly:ly + KH].copy_(head[:, KH:KH + mx])
                 xh = xhalo[e_y][x]
                 xh[ly:ly + KH, :KH].copy_(head[:, :KH])
@@ -551,22 +597,37 @@ def build_carrier_slab_advance(cfg: SimConfig, mesh: Mesh, dt: float):
         return _tilewise(mesh, lambda y, x: carrier_tile_slab_multistep(
             c[y][x], xhalo[y][x], yhalo[y][x], flags6(y, x), cfg, dt, kk, khalo=KH))
 
-    def embed(u: torch.Tensor) -> Tiles:
+    # The true extent of each local carrier tile as a global window
+    # (y0, y1, x0, x1); all-pad tiles have none.
+    windows = {}
+    for y, x in mesh.local_tiles():
+        h, w = extent(y, e_y, my, ly), extent(x, e_x, mx, lx)
+        if h and w:
+            windows[(y, x)] = (y * my, y * my + h, x * mx, x * mx + w)
+
+    def embed_from(block: Callable, dtype: torch.dtype) -> Tiles:
+        """Carrier tiles, zeros in the pad, each true extent filled with
+        ``block(window, device)``: no rank builds the (ny, nx) field."""
         def tile(y: int, x: int) -> torch.Tensor:
-            t = torch.zeros((my, mx), dtype=u.dtype, device=mesh.devices[y][x])
-            h, w = extent(y, e_y, my, ly), extent(x, e_x, mx, lx)
-            if h and w:
-                t[:h, :w].copy_(u[y * my:y * my + h, x * mx:x * mx + w])
+            t = torch.zeros((my, mx), dtype=dtype, device=mesh.devices[y][x])
+            if (y, x) in windows:
+                y0, y1, x0, x1 = windows[(y, x)]
+                t[:y1 - y0, :x1 - x0].copy_(block(windows[(y, x)], t.device))
             return t
 
         return _tilewise(mesh, tile)
 
+    def embed(u: torch.Tensor) -> Tiles:
+        return embed_from(lambda w, dev: u[w[0]:w[1], w[2]:w[3]], u.dtype)
+
     def extract(c: Tiles) -> Tiles:
         return [[c[y][x][:extent(y, e_y, my, ly), :extent(x, e_x, mx, lx)]
+                 if mesh.is_local(y, x) else None
                  for x in range(e_x + 1)] for y in range(e_y + 1)]
 
     advance = _make_chunk_advance(tile_pass, KH)
-    advance.embed, advance.extract = embed, extract
+    advance.embed, advance.embed_from, advance.extract = embed, embed_from, extract
+    advance.windows = windows
     advance.carrier_shape = (my * py, mx * px)
     advance.flags6 = flags6
     advance.kernel, advance.path = "K5", "carrier"

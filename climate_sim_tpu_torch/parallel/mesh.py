@@ -19,16 +19,25 @@ grid the mesh does not divide splits as the reference splits it
 remainder.  Tiles of one mesh row share a height and tiles of one mesh
 column a width, so the exchanges of :mod:`.halo` take such remainder tiles
 unchanged.
+
+Across processes (:mod:`..runtime.distributed`), the mesh is laid out over
+the global device list, every rank's devices in rank order (as
+``jax.devices()`` orders processes), so rank r owns a contiguous row-major
+run of tiles.  ``mesh.owner(y, x)`` names the rank of a tile and
+``mesh.rank`` this process; a rank's tile grid holds ``None`` where the
+tile is another rank's, and :func:`local_windows` gives each local tile's
+global window.  :func:`shard_field` and :func:`gather_field` stay
+single-process helpers.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-Tiles = List[List[torch.Tensor]]
+Tiles = List[List[Optional[torch.Tensor]]]
 
 
 def dims_create(size: int) -> Tuple[int, int]:
@@ -94,26 +103,56 @@ class Mesh:
 
     ``shape`` is ``{"x": px, "y": py}``; ``devices[y][x]`` holds tile
     (y, x).  ``copies`` counts the halo payloads the exchanges of
-    :mod:`.halo` deliver, keyed ``(axis, wrapped)``: ``wrapped`` is True
-    for a payload that crosses the axis's wrap edge (tile p-1 to tile 0 or
-    back).
+    :mod:`.halo` deliver to this process's tiles, keyed ``(axis,
+    wrapped)``: ``wrapped`` is True for a payload that crosses the axis's
+    wrap edge (tile p-1 to tile 0 or back).
+
+    ``owners[y][x]`` is the rank of tile (y, x) and ``rank`` this
+    process's (all 0 in one process); ``chips[y][x]`` names the card the
+    tile lies on, the same name on every rank (a CUDA device's UUID), so
+    that :meth:`chip_count` counts four ranks on one card as one chip.
+    ``transport`` carries the payloads between ranks (None in one process).
     """
 
-    def __init__(self, grid: Sequence[Sequence[torch.device]]):
+    def __init__(self, grid: Sequence[Sequence[torch.device]],
+                 owners: Optional[Sequence[Sequence[int]]] = None, rank: int = 0,
+                 chips: Optional[Sequence[Sequence[str]]] = None):
         self.devices = tuple(tuple(torch.device(d) for d in row) for row in grid)
         py, px = len(self.devices), len(self.devices[0])
         if any(len(row) != px for row in self.devices):
             raise ValueError("mesh rows differ in length")
         self.shape = {"x": px, "y": py}
+        self.owners = tuple(tuple(row) for row in owners) if owners is not None \
+            else tuple((rank,) * px for _ in range(py))
+        self.rank = rank
+        self.chips = tuple(tuple(row) for row in chips) if chips is not None \
+            else tuple(tuple(str(d) for d in row) for row in self.devices)
         self.copies = collections.Counter()
+        self.transport = None
+        self.rounds = 0   # exchange batches issued, the same count on every rank
 
     @property
     def size(self) -> int:
         return self.shape["x"] * self.shape["y"]
 
+    def owner(self, y: int, x: int) -> int:
+        return self.owners[y][x]
+
+    def is_local(self, y: int, x: int) -> bool:
+        return self.owners[y][x] == self.rank
+
+    def local_tiles(self) -> List[Tuple[int, int]]:
+        """This process's tiles (y, x), in row-major order."""
+        return [(y, x) for y in range(self.shape["y"]) for x in range(self.shape["x"])
+                if self.is_local(y, x)]
+
     def distinct_devices(self) -> List[torch.device]:
-        """The devices of the mesh, each once, in mesh order."""
-        return list(dict.fromkeys(d for row in self.devices for d in row))
+        """The devices of this process's tiles, each once, in mesh order."""
+        return list(dict.fromkeys(self.devices[y][x] for y, x in self.local_tiles()))
+
+    def chip_count(self) -> int:
+        """Distinct cards under the mesh, over every rank."""
+        return len({c for row in self.chips for c in row})
 
     def edge_flags(self, y: int, x: int) -> Tuple[int, int, int, int]:
         """[left, right, bottom, top]: 1 where tile (y, x)'s side lies on
@@ -123,12 +162,21 @@ class Mesh:
         return (int(x == 0), int(x == px - 1), int(y == 0), int(y == py - 1))
 
 
-def make_mesh(n_x: int, n_y: int, devices: Sequence) -> Mesh:
-    """A (n_y, n_x) mesh over the first n_x*n_y devices, in list order."""
+def make_mesh(n_x: int, n_y: int, devices: Sequence,
+              owners: Optional[Sequence[int]] = None, rank: int = 0,
+              chips: Optional[Sequence[str]] = None) -> Mesh:
+    """A (n_y, n_x) mesh over the first n_x*n_y devices, in list order;
+    ``owners`` and ``chips`` run parallel to ``devices`` (the global
+    device list of a multi-process run)."""
     devs = [torch.device(d) for d in devices]
     if len(devs) < n_x * n_y:
         raise ValueError(f"need {n_x * n_y} devices, have {len(devs)}")
-    return Mesh([devs[y * n_x:(y + 1) * n_x] for y in range(n_y)])
+
+    def rows(items):
+        return None if items is None else [
+            list(items[y * n_x:(y + 1) * n_x]) for y in range(n_y)]
+
+    return Mesh(rows(devs), rows(owners), rank, rows(chips))
 
 
 def divisible(mesh: Mesh, nx: int, ny: int) -> bool:
@@ -152,6 +200,14 @@ def _offsets(sizes: Sequence[int]) -> List[int]:
     for s in sizes:
         out.append(out[-1] + s)
     return out
+
+
+def local_windows(mesh: Mesh, ny: int, nx: int) -> Dict[Tuple[int, int], Tuple[int, int, int, int]]:
+    """Each local tile's global window ``(y0, y1, x0, x1)`` of the (ny, nx)
+    field, the blocks cut by :func:`split_sizes`."""
+    ys = _offsets(split_sizes(ny, mesh.shape["y"]))
+    xs = _offsets(split_sizes(nx, mesh.shape["x"]))
+    return {(y, x): (ys[y], ys[y + 1], xs[x], xs[x + 1]) for y, x in mesh.local_tiles()}
 
 
 def shard_field(u: torch.Tensor, mesh: Mesh) -> Tiles:

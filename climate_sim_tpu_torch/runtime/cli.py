@@ -8,6 +8,13 @@ as ``python -m climate_sim_tpu``).  The run gets every visible CUDA device
 (one card: the single-device path, as the JAX CLI on one chip), or the CPU
 when ``CLIMATE_SIM_PLATFORM=cpu``; without a card and without that
 variable the run fails.
+
+Multi-process, one rank per process, each on its own card
+(``cuda:(local_rank % device_count)``; ranks may share a card):
+
+    python -m climate_sim_tpu_torch --config=cfg.yaml --distributed=HOST:PORT,N,I
+    torchrun --nproc_per_node=N -m climate_sim_tpu_torch --config=cfg.yaml --distributed=auto
+
 Exit codes: 0 success, 2 bad configuration, 1 failed run.
 """
 
@@ -18,12 +25,14 @@ import sys
 from typing import List, Optional, Sequence
 
 from ..config import extract_config_path, merged_config
+from . import distributed
 from .driver import run_simulation
 
 
 def cli_devices():
     """``[cpu]`` when ``CLIMATE_SIM_PLATFORM=cpu``, else None: every visible
-    CUDA device (:func:`.driver.visible_cuda_devices`)."""
+    CUDA device (:func:`.driver.visible_cuda_devices`), or a rank's own
+    card (:func:`.distributed.default_devices`)."""
     return ["cpu"] if os.environ.get("CLIMATE_SIM_PLATFORM") == "cpu" else None
 
 
@@ -55,6 +64,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except Exception as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    finally:
+        distributed.shutdown()
     return 0
 
 

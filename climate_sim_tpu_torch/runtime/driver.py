@@ -26,17 +26,30 @@ path (K5), whose carrier tiles are the loop state while everything the
 driver reads (IC min/max, ``diag:`` lines, ``debug_nans``, snapshots,
 ``RunResult.u``) sees only the true (ny, nx) extent; else, or when the
 carrier declines (with a ``[warn]``), the per-step path on the reference's
-remainder tiles.  A multi-process (``distributed``) request raises.
+remainder tiles.  A mesh's IC is built per tile from global coordinates
+(:func:`..ops.init.device_initial_condition`) and its snapshots are written
+per tile (:class:`..io.snapshots.ShardedSnapshotWriter`).
+
+Multi-process runs (``distributed``, :mod:`.distributed`): every rank names
+its own devices (by default its card, ``cuda:(local_rank % count)``), the
+mesh is laid out over all ranks' devices in rank order, and each rank runs
+and writes only its own tiles.  The controller (rank 0) prints the log,
+creates the snapshot file before a bounded barrier after which the other
+ranks attach; IC and diagnostic statistics, ``debug_nans`` and the wall
+time (the MAX over ranks) are reduced across ranks; ``RunResult.u`` is the
+rank's own tile grid, never a gather.
 
 Kept apart from the JAX routing on purpose, because each JAX branch answers
-a TPU layout limit that the port's kernels do not have:
+a TPU layout limit or measurement that does not carry over:
 
 * a single device runs K1 for every shape (the JAX 1x1-carrier dispatch,
   driver.py:405-430, exists because the TPU's fused layout declines
   misaligned widths);
 * a grid the mesh divides keeps K4 even when its tiles are misaligned
   (JAX driver.py:342-348 prefers the carrier there for the same reason);
-* ``distributed`` still raises: the multi-process driver is not ported.
+* ``halo_overlap: auto`` stays off and k stays 8 across ranks: the JAX
+  rule for meshes that cross DCN granules (driver.py:172-213) is a TPU
+  measurement.
 """
 
 from __future__ import annotations
@@ -45,14 +58,15 @@ import dataclasses
 import os
 import sys
 import time
-from typing import List, Optional
+import traceback
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import SimConfig, bc_to_string
-from ..io.snapshots import SnapshotWriter
-from ..ops.init import DTYPES, apply_initial_condition
+from ..io.snapshots import ShardedSnapshotWriter, SnapshotWriter
+from ..ops.init import DTYPES, apply_initial_condition, device_initial_condition
 from ..ops.stability import clamp_dt, combined_dt_limit
 from ..ops.step import (
     KERNEL_VALUES,
@@ -68,13 +82,13 @@ from ..parallel.halo import (
     build_sharded_overlap_advance,
 )
 from ..parallel.mesh import (
-    Tiles,
     choose_mesh_shape,
     divisible,
     gather_field,
+    local_windows,
     make_mesh,
-    shard_field,
 )
+from . import distributed
 
 # Longest piece of a span dispatched as one chunk program.  Kept from the
 # JAX package (driver.py:521-529) so both packages run the same pass
@@ -84,7 +98,7 @@ MAX_DISPATCH = 256
 
 @dataclasses.dataclass
 class RunResult:
-    u: torch.Tensor         # final global state (never snapshotted unless write_final)
+    u: object               # final state: the global tensor, or this rank's tile grid
     total_time: float
     avg_step_time: float
     steps: int
@@ -98,11 +112,13 @@ class RunResult:
 
 
 def _log(msg: str) -> None:
-    print(msg, flush=True)
+    if distributed.is_controller():
+        print(msg, flush=True)
 
 
 def _warn(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
+    if distributed.is_controller():
+        print(msg, file=sys.stderr, flush=True)
 
 
 def resolve_device(device) -> torch.device:
@@ -139,10 +155,11 @@ def visible_cuda_devices() -> List[torch.device]:
 
 def resolve_devices(devices) -> List[torch.device]:
     """The run's device list: ``devices`` (a list, or one device), else
-    every visible CUDA device.  All of one type, each checked by
-    :func:`resolve_device`."""
+    every visible CUDA device (a rank of a multi-process run: its own
+    card).  All of one type, each checked by :func:`resolve_device`."""
     if devices is None:
-        devs = visible_cuda_devices()
+        devs = distributed.default_devices() if distributed.initialized() \
+            else visible_cuda_devices()
     elif isinstance(devices, (str, torch.device)):
         devs = [devices]
     else:
@@ -155,19 +172,13 @@ def resolve_devices(devices) -> List[torch.device]:
     return devs
 
 
-def _check_single_process(cfg: SimConfig) -> None:
-    if cfg.distributed:
-        raise NotImplementedError(
-            f"distributed={cfg.distributed!r}: multi-process runs are not"
-            " ported to the PyTorch package yet; it runs in one process"
-        )
-
-
 def resolve_auto_policies(cfg: SimConfig) -> SimConfig:
     """Resolve ``halo_overlap="auto"`` as the JAX package does
-    (driver.py:172-213) for a mesh that crosses no DCN granule, which is
-    every mesh of one host's cards: overlap off.  ``steps_per_pass=0``
-    stays 0 (``pick_steps_per_pass`` applies the on-chip default 8)."""
+    (driver.py:172-213) for a mesh that crosses no DCN granule: overlap
+    off.  Across ranks too: the JAX rule that turns it on (and k to 16)
+    for meshes that cross granules is a TPU measurement.
+    ``steps_per_pass=0`` stays 0 (``pick_steps_per_pass`` applies the
+    on-chip default 8)."""
     if cfg.halo_overlap == "auto":
         cfg = dataclasses.replace(cfg, halo_overlap=False)
     return cfg
@@ -201,24 +212,37 @@ def run_pass_count(cfg: SimConfig, advance) -> int:
     )
 
 
-def _tiles(u) -> Tiles:
-    """A field as a tile grid: the mesh's own, or one tile."""
-    return u if isinstance(u, list) else [[u]]
+def _local(u) -> List[torch.Tensor]:
+    """This process's tiles of a field (one tensor, or a tile grid)."""
+    if not isinstance(u, list):
+        return [u]
+    return [t for row in u for t in row if t is not None]
 
 
-def _field_stats(u) -> torch.Tensor:
-    """[min, max, mean, l2] as ONE vector on the (first) tile's device,
-    fetched when read; a tiled field reduces per tile, then across tiles."""
-    tiles = [t for row in _tiles(u) for t in row]
+def _field_stats(u) -> Optional[torch.Tensor]:
+    """[min, max, sum, sum of squares] of this process's part of a field,
+    ONE vector on its first tile's device (None without a tile); read it
+    with :func:`_read_stats`."""
+    tiles = _local(u)
+    if not tiles:
+        return None
     dev = tiles[0].device
     parts = []
     for t in tiles:
         af = t.to(torch.float32) if t.dtype == torch.bfloat16 else t
         parts.append(torch.stack([af.min(), af.max(), af.sum(), torch.sum(af * af)]).to(dev))
     p = torch.stack(parts)
-    n = sum(t.numel() for t in tiles)
-    return torch.stack([p[:, 0].min(), p[:, 1].max(), p[:, 2].sum() / n,
-                        torch.sqrt(p[:, 3].sum())])
+    return torch.stack([p[:, 0].min(), p[:, 1].max(), p[:, 2].sum(), p[:, 3].sum()])
+
+
+def _read_stats(vec: Optional[torch.Tensor], points: int) -> np.ndarray:
+    """[min, max, mean, l2] of the whole field from every rank's
+    :func:`_field_stats` (reduced across ranks on the host)."""
+    v = [np.inf, -np.inf, 0.0, 0.0] if vec is None else \
+        vec.to("cpu", torch.float64).tolist()
+    lo = distributed.reduce([-v[0], v[1]], "max")
+    s = distributed.reduce(v[2:], "sum")
+    return np.array([-lo[0], lo[1], s[0] / points, np.sqrt(s[1])])
 
 
 def _path_name(advance, device: torch.device) -> str:
@@ -261,18 +285,39 @@ def _mesh_advance(cfg: SimConfig, mesh, dt: float, device: torch.device):
     return build_padded_advance(dataclasses.replace(cfg, kernel=kernel), mesh, dt)
 
 
+def _make_run_mesh(cfg: SimConfig, devs: List[torch.device]):
+    """The mesh over the global device list (every rank's devices in rank
+    order, cut to ``max_devices``), with its transport across ranks; None
+    for one device."""
+    entries = distributed.global_devices(devs)
+    if cfg.max_devices:
+        entries = entries[: cfg.max_devices]
+    if not (cfg.mesh.enable and len(entries) > 1):
+        if distributed.world_size() > 1:
+            raise ValueError(
+                f"a {distributed.world_size()}-process run needs a mesh: mesh.enable"
+                f" and more than one device over the ranks (have {len(entries)})"
+            )
+        return None
+    px, py = choose_mesh_shape(len(entries), cfg.nx, cfg.ny, cfg.mesh.x, cfg.mesh.y)
+    owners, names, chips = zip(*entries)
+    mesh = make_mesh(px, py, names, owners, distributed.rank(), chips)
+    if distributed.world_size() > 1:
+        mesh.transport = distributed.make_transport(mesh)
+    return mesh
+
+
 def prepare(cfg: SimConfig, devices=None):
-    """Resolve the devices, mesh, dtype, dt clamp, advance and IC.
+    """Resolve the process group, devices, mesh, dtype, dt clamp, advance
+    and IC.
 
     Returns (u0, advance, mesh, dt, clamped).  ``advance(k)`` advances the
-    field k steps: the global tensor on one device (``mesh`` None), or the
-    mesh's tile grid (carrier tiles on the carrier path, whose
-    ``advance.extract`` gives the true extent).
+    field k steps: the global tensor on one device (``mesh`` None), or this
+    process's tiles of the mesh's grid (carrier tiles on the carrier path,
+    whose ``advance.extract`` gives the true extent).
     """
-    _check_single_process(cfg)
+    distributed.maybe_init_distributed(cfg)
     devs = resolve_devices(devices)
-    if cfg.max_devices:
-        devs = devs[: cfg.max_devices]
     dtype = DTYPES[cfg.precision]
 
     dt, limit, clamped = clamp_dt(cfg.dt, cfg.dx, cfg.dy, cfg.vx, cfg.vy, cfg.D)
@@ -282,10 +327,7 @@ def prepare(cfg: SimConfig, devices=None):
             f"[warn] dt={cfg.dt:g} exceeds stability limit {limit:g}"
             f" -> clamping to dt={dt:g}"
         )
-    mesh = None
-    if cfg.mesh.enable and len(devs) > 1:
-        px, py = choose_mesh_shape(len(devs), cfg.nx, cfg.ny, cfg.mesh.x, cfg.mesh.y)
-        mesh = make_mesh(px, py, devs)
+    mesh = _make_run_mesh(cfg, devs)
     cfg = resolve_auto_policies(cfg)
     if mesh is None:
         advance = build_single_device_advance(cfg, dt, devs[0])
@@ -317,19 +359,36 @@ def prepare(cfg: SimConfig, devices=None):
             f" stability bound {comb:g}; the run may diverge"
             " (the reference's clamp envelope does not cover this case)"
         )
-    u0 = apply_initial_condition(cfg, dtype, devs[0]).contiguous()
-    if hasattr(advance, "embed"):
-        u0 = advance.embed(u0)
-    elif mesh is not None:
-        u0 = shard_field(u0, mesh)
+    if mesh is None:
+        u0 = apply_initial_condition(cfg, dtype, devs[0]).contiguous()
+    else:
+        # Per tile, so that no rank builds or reads the (ny, nx) field; a
+        # failure (a bad IC file) raises on every rank together.
+        err = None
+        try:
+            u0 = device_initial_condition(cfg, dtype, mesh,
+                                          getattr(advance, "embed_from", None))
+        except Exception as e:
+            err = e
+        distributed.raise_together(err, "the initial condition")
     return u0, advance, mesh, dt, clamped
 
 
+def _view_offsets(advance, mesh, cfg: SimConfig) -> Dict[Tuple[int, int], Tuple[int, int]]:
+    """The global (y0, x0) of each local tile of the field's true-extent
+    view: every tile of a mesh, or the carrier tiles that hold true cells."""
+    if mesh is None:
+        return {(0, 0): (0, 0)}
+    windows = getattr(advance, "windows", None) or local_windows(mesh, cfg.ny, cfg.nx)
+    return {yx: (w[0], w[2]) for yx, w in windows.items()}
+
+
 class _HostCopier:
-    """Copies a snapshot to the host while the next span runs: on CUDA each
-    tile's copy waits on an event recorded on its device before the span's
-    launch and runs on that device's side stream into pinned memory; the
-    global array is then assembled on the host."""
+    """Copies this process's part of a snapshot to the host while the next
+    span runs: on CUDA each tile's copy waits on an event recorded on its
+    device before the span's launch and runs on that device's side stream
+    into pinned memory.  The regions go to the writer as they are: no
+    process assembles the global array."""
 
     def __init__(self, devices: List[torch.device]):
         self.streams = {d: torch.cuda.Stream(d) for d in devices if d.type == "cuda"}
@@ -343,22 +402,21 @@ class _HostCopier:
             events[d].record(torch.cuda.current_stream(d))
         return events
 
-    def fetch(self, u, ready) -> np.ndarray:
+    def fetch(self, regions, ready) -> List[Tuple[int, int, np.ndarray]]:
+        """``(y0, x0, tensor)`` regions as ``(y0, x0, float64 array)``."""
         hosts = []
-        for row in _tiles(u):
-            hosts.append([])
-            for t in row:
-                if t.device.type == "cuda":
-                    stream = self.streams[t.device]
-                    with torch.cuda.stream(stream):
-                        stream.wait_event(ready[t.device])
-                        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                        host.copy_(t, non_blocking=True)
-                    t = host
-                hosts[-1].append(t)
+        for y0, x0, t in regions:
+            if t.device.type == "cuda":
+                stream = self.streams[t.device]
+                with torch.cuda.stream(stream):
+                    stream.wait_event(ready[t.device])
+                    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    host.copy_(t, non_blocking=True)
+                t = host
+            hosts.append((y0, x0, t))
         for stream in self.streams.values():
             stream.synchronize()
-        return np.block([[t.to(torch.float64).numpy() for t in row] for row in hosts])
+        return [(y0, x0, t.to(torch.float64).numpy()) for y0, x0, t in hosts]
 
 
 def _synchronize(devices: List[torch.device]) -> None:
@@ -367,15 +425,39 @@ def _synchronize(devices: List[torch.device]) -> None:
             torch.cuda.synchronize(d)
 
 
+def _open_writer(cfg: SimConfig, mesh, path: str):
+    """A whole-field writer for one device; on a mesh a region writer that
+    the controller creates and the other ranks attach to after a bounded
+    barrier (JAX driver.py:481-503)."""
+    if mesh is None:
+        return SnapshotWriter(path, cfg)
+    writer = None
+    if distributed.is_controller():
+        try:
+            writer = ShardedSnapshotWriter(path, cfg, create=True)
+        except Exception:
+            # The peers wait in the barrier below until it fails; put the
+            # real error (disk full, permissions, ...) on this rank's stderr
+            # before theirs masks it.
+            if distributed.world_size() > 1:
+                traceback.print_exc()
+            raise
+    distributed.bounded_sync("climate_sim_tpu:snapshot_open")
+    if writer is None:
+        writer = ShardedSnapshotWriter(path, cfg, create=False)
+    return writer
+
+
 def run_simulation(
     cfg: SimConfig, devices=None, write_output: bool = True
 ) -> RunResult:
     """Execute a full run (the reference main loop, main.cpp:93-133) on
     ``devices`` (a list of torch devices, or one; default every visible
-    CUDA device)."""
+    CUDA device, or this rank's card in a multi-process run)."""
     u, advance, mesh, dt, clamped = prepare(cfg, devices)
     used = mesh.distinct_devices() if mesh is not None else [u.device]
-    device = used[0]
+    device = used[0] if used else torch.device("cpu")
+    world = distributed.world_size()
     # Record the dt actually used: the reference clamps cfg.dt in place
     # before writing metadata (main.cpp:42-49).
     cfg = dataclasses.replace(cfg, dt=dt)
@@ -389,6 +471,8 @@ def run_simulation(
     )
     if mesh is not None:
         _log(f"  mesh: x={mesh.shape['x']} y={mesh.shape['y']} ({mesh.size} devices)")
+    if world > 1:
+        _log(f"  ranks: {world}  transport: {mesh.transport.describe()}")
     names = ", ".join(
         f"{d} ({torch.cuda.get_device_name(d)})" if d.type == "cuda" else str(d)
         for d in used
@@ -398,10 +482,17 @@ def run_simulation(
     # The carrier path's loop state is its carrier tiles; everything read
     # below sees the true extent only.
     view = getattr(advance, "extract", None) or (lambda x: x)
+    offsets = _view_offsets(advance, mesh, cfg)
+    points = cfg.nx * cfg.ny
+
+    def regions(field):
+        if mesh is None:
+            return [(0, 0, field)]
+        return [(*offsets[(y, x)], field[y][x]) for y, x in offsets]
 
     # IC sanity log (a 4-scalar fetch); also surfaces a bad IC before the
     # snapshot file is created.
-    ic_stats = _field_stats(view(u)).to("cpu", torch.float64).numpy()
+    ic_stats = _read_stats(_field_stats(view(u)), points)
     _log(f"IC min/max: {ic_stats[0]:g} / {ic_stats[1]:g}")
 
     copier = _HostCopier(used)
@@ -418,12 +509,19 @@ def run_simulation(
             u = advance(kk)(u)
         return u
 
+    def emit(field, ready):
+        host = copier.fetch(regions(field), ready)
+        if mesh is None:
+            writer.write(host[0][2])
+        else:
+            writer.write_shards(host)
+
     writer = None
     out_path = None
     if write_output and cfg.output_enable:
         out_path = cfg.resolved_output_path()
         _log("Opening NetCDF file for output")
-        writer = SnapshotWriter(out_path, cfg)
+        writer = _open_writer(cfg, mesh, out_path)
     try:
         profiler = None
         if cfg.profile_dir:
@@ -442,7 +540,7 @@ def run_simulation(
             if n % cfg.out_every == 0 and writer is not None:
                 u_snap, ready = view(u), copier.mark()
                 u = dispatch_span(u, k)  # launch the next span before the copy
-                writer.write(copier.fetch(u_snap, ready))
+                emit(u_snap, ready)
                 del u_snap
                 snapshots += 1
             else:
@@ -450,40 +548,51 @@ def run_simulation(
             if cfg.diagnostics_every and (n // cfg.out_every) % max(1, cfg.diagnostics_every) == 0:
                 # Reductions launch now and are fetched after the timed loop.
                 diag_pending.append((n + k, _field_stats(view(u))))
-            if cfg.debug_nans and any(
-                bool(torch.isnan(t).any()) for row in _tiles(view(u)) for t in row
-            ):
-                raise FloatingPointError(f"NaN in the field after step {n + k}")
+            if cfg.debug_nans:
+                nan = any(bool(torch.isnan(t).any()) for t in _local(view(u)))
+                # Every rank stops together, so no peer waits in an exchange.
+                if distributed.reduce([float(nan)], "max")[0]:
+                    raise FloatingPointError(f"NaN in the field after step {n + k}")
             n += k
         _synchronize(used)
         total = time.perf_counter() - t0
         if profiler is not None:
             profiler.stop()
             os.makedirs(cfg.profile_dir, exist_ok=True)
-            profiler.export_chrome_trace(os.path.join(cfg.profile_dir, "trace.json"))
+            name = "trace.json" if world == 1 else f"trace_rank{distributed.rank()}.json"
+            profiler.export_chrome_trace(os.path.join(cfg.profile_dir, name))
 
         for step, vec in diag_pending:
-            mn, mx, mean, l2 = vec.to("cpu", torch.float64).numpy()
+            mn, mx, mean, l2 = _read_stats(vec, points)
             _log(f"diag: step={step} min={mn:.6g} max={mx:.6g} mean={mean:.6g} l2={l2:.6g}")
 
         if cfg.write_final and writer is not None:
-            writer.write(copier.fetch(view(u), copier.mark()))
+            emit(view(u), copier.mark())
             snapshots += 1
     finally:
         if writer is not None:
             writer.close()
 
+    # MPI_Reduce(MAX) analogue (main.cpp:127-128): the slowest rank's wall.
+    total = float(distributed.reduce([total], "max")[0])
     avg_step = total / max(1, cfg.steps)
     _log(f"passes: timed={timed_passes} warmup={warmup_passes}")
     _log(f"timing: total_max={total:g} s, worst_avg_step={avg_step:g} s")
-    # Per chip = per DISTINCT device: a 2x2 mesh on one card is one chip,
-    # not four.
-    pts = cfg.nx * cfg.ny * cfg.steps / max(total, 1e-12)
+    # Per chip = per DISTINCT card, over every rank: a 2x2 mesh on one
+    # card, or four ranks sharing it, is one chip, not four.
+    pts = points * cfg.steps / max(total, 1e-12)
+    chips = mesh.chip_count() if mesh is not None else 1
     _log(f"throughput: {pts / 1e6:.1f} Mpoint/s total, "
-         f"{pts / 1e6 / len(used):.1f} Mpoint/s/chip")
+         f"{pts / 1e6 / chips:.1f} Mpoint/s/chip")
 
+    if mesh is None:
+        final = u
+    elif world > 1:
+        final = view(u)
+    else:
+        final = gather_field(view(u))
     return RunResult(
-        u=gather_field(view(u)) if mesh is not None else u,
+        u=final,
         total_time=total,
         avg_step_time=avg_step,
         steps=cfg.steps,

@@ -184,11 +184,19 @@ def test_cuda_request_without_a_card_raises(tmp_path, monkeypatch, capsys):
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("override", ["--distributed=auto"])
+@pytest.mark.parametrize("override", ["--distributed=127.0.0.1:1234,2"])
 def test_mesh_or_distributed_request_raises(override):
+    """A malformed ``distributed`` spec raises the JAX package's error
+    before any process group is joined (multi-process runs themselves are
+    tests/test_torch_multiprocess.py's)."""
+    from climate_sim_tpu.runtime.driver import maybe_init_distributed
+
     cfg = tconfig.merged_config(None, ["--nx=16", "--ny=16", override])
-    with pytest.raises(NotImplementedError, match="not\\s+ported"):
+    with pytest.raises(ValueError) as je:
+        maybe_init_distributed(jconfig.merged_config(None, ["--nx=16", "--ny=16", override]))
+    with pytest.raises(ValueError) as te:
         tdriver.run_simulation(cfg, "cpu", write_output=False)
+    assert str(te.value) == str(je.value)
 
 
 @pytest.mark.parametrize("override", ["--mesh.x=2", "--mesh.y=4"])
@@ -328,9 +336,11 @@ def test_config_copy_rejects_like_jax(args):
     assert str(te.value) == str(je.value)
 
 
-@pytest.mark.parametrize("name", ["io/netcdf.py", "io/datasets.py", "ops/stability.py"])
+@pytest.mark.parametrize("name", ["io/netcdf.py", "io/datasets.py", "ops/stability.py",
+                                  "native/cdf5_writer.cc"])
 def test_verbatim_copies_equal_their_originals(name):
-    with open(os.path.join(REPO, "climate_sim_tpu", name)) as f:
+    original = {"native/cdf5_writer.cc": os.path.join(REPO, "native", "src", "cdf5_writer.cc")}
+    with open(original.get(name, os.path.join(REPO, "climate_sim_tpu", name))) as f:
         want = f.read()
     with open(os.path.join(REPO, "climate_sim_tpu_torch", name)) as f:
         assert f.read() == want
@@ -364,6 +374,7 @@ def test_port_imports_no_jax():
         "import climate_sim_tpu_torch.ops.cuda_stencil, climate_sim_tpu_torch.convert\n"
         "import climate_sim_tpu_torch.runtime.cli, climate_sim_tpu_torch.ops._build\n"
         "import climate_sim_tpu_torch.parallel, climate_sim_tpu_torch.ops.cuda_sharded\n"
+        "import climate_sim_tpu_torch.runtime.distributed, climate_sim_tpu_torch.io.native\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m.startswith('climate_sim_tpu.') or m == 'climate_sim_tpu'\n"
         "               for m in sys.modules), 'the JAX package was imported'\n"

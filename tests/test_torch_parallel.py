@@ -376,13 +376,20 @@ def test_run_simulation_on_a_mesh_matches_jax(tmp_path, capsys, case):
 
 
 def test_indivisible_grid_on_a_mesh_raises():
-    """On a mesh, an indivisible grid raises only for a multi-process
-    request (the multi-process driver is not ported)."""
+    """On a mesh, an indivisible grid raises only for a malformed
+    multi-process request, with the JAX package's error (``true`` is no
+    spec in JAX either); tests/test_torch_multiprocess.py runs the
+    carrier across ranks."""
+    from climate_sim_tpu.runtime.driver import maybe_init_distributed
+
     # No factor pair of 4 divides 33x33, so the mesh is the near-square 2x2.
-    cfg = tconfig.merged_config(None, ["--nx=33", "--ny=33", "--kernel=pallas",
-                                       "--distributed=true"])
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        tdriver.run_simulation(cfg, ["cpu"] * 4, write_output=False)
+    args = ["--nx=33", "--ny=33", "--kernel=pallas", "--distributed=true"]
+    with pytest.raises(ValueError) as je:
+        maybe_init_distributed(jconfig.merged_config(None, args))
+    with pytest.raises(ValueError) as te:
+        tdriver.run_simulation(tconfig.merged_config(None, args), ["cpu"] * 4,
+                               write_output=False)
+    assert str(te.value) == str(je.value)
 
 
 def test_indivisible_grid_on_a_mesh_runs_the_carrier(capsys):
