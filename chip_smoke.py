@@ -49,7 +49,15 @@ Phases, each of which raises on failure (nothing is caught):
    summed over the ranks equal to the pass schedule, the log on rank 0
    only (and, with four cards, the slab and carrier runs one rank per card
    over NCCL beside the single-process mesh over the four cards);
-9. K2-K5 per pass (launches replayed from a CUDA graph, so the card's
+9. the port's tools, each through its entry point: an IC file from
+   ``scripts/torch_generate_ic.py`` at 4096² run through the CLI and held
+   to the preset run; ``scripts/torch_hw_conformance.py`` (every path x
+   BC class against the f64 oracle; its ``N cases: ALL OK`` line);
+   ``scripts/torch_run_benchmark.py`` on the ``cuda`` and ``multiproc``
+   platforms (the CSV rows printed); ``scripts/torch_trace_rate.py`` at
+   bench_4096; ``scripts/torch_hw_rates.py`` (each path's rate against
+   K1's, held to its band);
+10. K2-K5 per pass (launches replayed from a CUDA graph, so the card's
    time and not the wrappers' host time is measured) beside their plain
    versions (K5 on a 2009x2001 carrier
    tile, in turns with K4 on 2048²; K2 also beside ``conv2d`` with its five
@@ -60,13 +68,18 @@ Phases, each of which raises on failure (nothing is caught):
    kernel time, launches, throughput line and busy share of the
    unprofiled wall.
 
-The line before the last is a JSON summary of the kernels; the last line is
+The second line before the last is a JSON summary of the kernels: each
+kernel's ``launches`` sum the runs of phases 4, 7 and 8 (the paths' own
+runs, the multi-process ranks' included), and its ``tools_launches`` count
+phase 9's runs in this process apart from them; the script fails if either
+is 0.  Then the card's name and power limit from nvidia-smi; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 repository beside it, the script exits non-zero and prints no result.
 
 ``python3 chip_smoke.py --multiprocess-only`` runs phases 1 and 2, the
 three phase-7 runs that the multi-process runs are held to, and the
-multi-process runs (with four cards, the NCCL runs too).
+multi-process runs (with four cards, the NCCL runs too);
+``python3 chip_smoke.py --tools-only`` runs phases 1, 2 and 9.
 """
 
 from __future__ import annotations
@@ -1017,6 +1030,145 @@ def phase_multiprocess(torch, device, tmp, refs):
     return launches, rates
 
 
+TOOLS_IC_STEPS = 200
+TOOLS_TIMEOUT_S = 600
+# The file IC is the f64 Gaussian the preset computes in f32 on the card;
+# the two f32 fields differ by a few f32 ulps of values <= 1, and diffusion
+# does not grow that.
+TOOLS_IC_ATOL = 1e-6
+
+
+def load_script(name):
+    """A script of ``scripts/`` as a module (its ``main`` then runs in this
+    process, where the launch counters are readable)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(HERE, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def captured(fn, *args):
+    """``fn(*args)`` with its stdout captured; returns (result, stdout)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    return rc, buf.getvalue()
+
+
+def run_tool(args, timeout=TOOLS_TIMEOUT_S):
+    """A script as its own process group, killed whole if it outlasts
+    ``timeout`` (the scaling harness starts ranks of its own)."""
+    p = subprocess.Popen([sys.executable, *args], cwd=HERE, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, 9)
+        p.communicate()
+        fail(f"{' '.join(args)} outlasted {timeout} s")
+    return p.returncode, out, err
+
+
+def phase_tools(torch, device, tmp):
+    """The port's tools on the card, each through its own entry point:
+    ``torch_generate_ic`` at 4096² and a file-IC run through the CLI, held
+    to the preset run; ``torch_hw_conformance`` at its defaults (every path
+    x BC class against the f64 oracle); ``torch_run_benchmark`` on the
+    ``cuda`` platform (4096², one card) and the ``multiproc`` platform
+    (strong 1/2/4 ranks at 1024², weak 1/4 ranks of 512² tiles); then
+    ``torch_trace_rate`` at bench_4096 and ``torch_hw_rates``.  Returns
+    the launch counts of the runs made in this process (the harness's
+    ranks are processes of their own, uncounted)."""
+    import numpy as np
+
+    from climate_sim_tpu_torch.io.netcdf import NetCDFFile
+    from climate_sim_tpu_torch.runtime.cli import main as cli_main
+
+    t0 = time.perf_counter()
+    reset_counts()
+    ic_path = os.path.join(tmp, "tools_ic", "ic_global.nc")
+    rc, out = captured(load_script("torch_generate_ic").main,
+                       [f"--nx={BENCH_GRID}", f"--ny={BENCH_GRID}", f"--out={ic_path}"])
+    if rc != 0:
+        fail(f"torch_generate_ic exit code {rc}")
+    print(f"[tools] {out.strip()}")
+    finals = {}
+    for label, extra in (("preset", []), ("file IC", ["--ic.mode=file", f"--ic.path={ic_path}"])):
+        args = [f"--config={BENCH_CFG}", f"--nx={BENCH_GRID}", f"--ny={BENCH_GRID}",
+                f"--steps={TOOLS_IC_STEPS}",
+                f"--out_every={TOOLS_IC_STEPS}", "--write_final=true",
+                f"--output.dir={os.path.join(tmp, 'tools_' + label.replace(' ', '_'))}", *extra]
+        rc, out = captured(cli_main, args)
+        if rc != 0:
+            fail(f"tools: the {label} run through the CLI exited {rc}")
+        m = re.search(r"^throughput: (.*)$", out, re.M)
+        with NetCDFFile(os.path.join(tmp, "tools_" + label.replace(" ", "_"), "snapshots.nc")) as ds:
+            finals[label] = ds.variables["u"][-1, :, :]
+        print(f"[tools] {label} run, {BENCH_GRID}², {TOOLS_IC_STEPS} steps through the CLI:"
+              f" throughput {m.group(1)}")
+    err = float(np.abs(finals["file IC"] - finals["preset"]).max())
+    if not np.isfinite(finals["file IC"]).all() or err > TOOLS_IC_ATOL:
+        fail(f"tools: the file-IC run vs the preset run: max abs err {err:.3g} > {TOOLS_IC_ATOL}")
+    print(f"[tools] file-IC run vs preset run, final field: max abs err {err:.3g}"
+          f" (tol {TOOLS_IC_ATOL})")
+
+    rc, out = captured(load_script("torch_hw_conformance").main, [])
+    m = re.search(r"^hw_conformance: (\d+) cases: (.*)$", out, re.M)
+    rows = [ln.split() for ln in out.splitlines() if ln.startswith(("ok ", "FAIL "))]
+    by_path = {}
+    for row in rows:
+        by_path[row[2]] = by_path.get(row[2], 0) + 1
+    for row in rows:
+        if row[0] == "FAIL":
+            print(f"[tools] conformance FAIL {' '.join(row[1:])}")
+    if rc != 0 or m is None or m.group(2) != "ALL OK" or int(m.group(1)) != len(rows):
+        fail(f"torch_hw_conformance exit code {rc}: {m.group(0) if m else 'no summary line'}")
+    worst = max(float(row[3].split("=")[1]) for row in rows)
+    print(f"[tools] {m.group(0)} (rows by path: {by_path}; largest rel_err {worst:.3g})")
+
+    for label, args in (
+        ("cuda", ["--platform=cuda", "--strong-ranks", "1", "--strong-nx", str(BENCH_GRID),
+                  "--strong-ny", str(BENCH_GRID), "--skip-weak"]),
+        ("multiproc", ["--platform=multiproc", "--strong-ranks", "1", "2", "4",
+                       "--strong-nx", "1024", "--strong-ny", "1024", "--weak-ranks", "1", "4",
+                       "--weak-tile-nx", "512", "--weak-tile-ny", "512"]),
+    ):
+        out_dir = os.path.join(tmp, f"bench_torch_{label}")
+        rc, out, err = run_tool([os.path.join("scripts", "torch_run_benchmark.py"), *args,
+                                 "--steps", "200", f"--out-dir={out_dir}",
+                                 f"--config={BENCH_CFG}"])
+        if rc != 0:
+            fail(f"torch_run_benchmark --platform={label} exit code {rc}:\n{out[-2000:]}\n"
+                 f"{err[-3000:]}")
+        names = sorted(os.listdir(out_dir))
+        want = 2 if label == "cuda" else 3
+        if len(names) != want:
+            fail(f"torch_run_benchmark --platform={label} wrote {names}")
+        for name in names:
+            with open(os.path.join(out_dir, name)) as f:
+                for line in f:
+                    if not line.startswith("#"):
+                        kind = re.sub(r"_\d{8}_\d{6}\.csv$", "", name)
+                        print(f"[tools] {kind}: {line.rstrip()}")
+
+    rc, out = captured(load_script("torch_trace_rate").main, [])
+    if rc != 0:
+        fail(f"torch_trace_rate exit code {rc}")
+    for line in out.strip().splitlines():
+        print(f"[tools] trace_rate {line}")
+
+    rc, out = captured(load_script("torch_hw_rates").main, [])
+    for line in out.strip().splitlines():
+        print(f"[tools] hw_rates {line}")
+    if rc != 0:
+        fail(f"torch_hw_rates exit code {rc}")
+    counts = read_counts()
+    print(f"[tools] launches in this process: {counts}; {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def events_ms(torch, device, fn, reps):
     """Mean ms of ``fn()`` over ``reps`` calls, from CUDA events after one
     warm-up call."""
@@ -1292,6 +1444,14 @@ def main() -> int:
     phase_build()
     if sys.argv[1:] == ["--multiprocess-only"]:
         return multiprocess_only(torch, device)
+    if sys.argv[1:] == ["--tools-only"]:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            tools = phase_tools(torch, device, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(json.dumps({"tools": {"launches": tools}}))
+        return 0
     cases, worst = phase_kernel_vs_plain(torch, device)
     tile_cases, tile_worst = phase_tile_kernels_vs_plain(torch, device)
     tile_cases["K5"], tile_worst["K5"] = phase_carrier_kernel_vs_plain(torch, device)
@@ -1324,6 +1484,9 @@ def main() -> int:
         mp_launches, _ = phase_multiprocess(torch, device, tmp, refs)
         for n in KERNEL_NAMES:
             launches[n] += mp_launches[n]
+        # The tools' launches (their timing loops included) stand beside the
+        # paths' own counts, never in them.
+        tools = phase_tools(torch, device, tmp)
         k1_times = phase_timing(torch, device)
         tile_times, _, bounds, library = phase_tile_timing(torch, device)
         phase_profile(torch, device, tmp, f"bench_{BENCH_GRID} single device",
@@ -1348,12 +1511,15 @@ def main() -> int:
     for n in KERNEL_NAMES:
         if launches[n] < 1:
             fail(f"{n} was launched no time on its path")
+        if tools[n] < 1:
+            fail(f"{n} was launched no time by the tools")
     kernels = {"kernels": [{
         "name": titles[n],
         "route": "cuda",
         "source": f"climate_sim_tpu_torch/csrc/{sources[n]}",
         "replaces": f"climate_sim_tpu/ops/pallas_stencil.py:{replaces[n]}",
         "launches": launches[n],
+        "tools_launches": tools[n],
         "max_abs_err": all_worst[n]["float32"],
         "max_abs_err_by_dtype": all_worst[n],
         **({"ms_by_dtype": {d: t[0] for d, t in k1_times.items()}} if n == "K1" else {}),

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import SimConfig
@@ -51,6 +52,20 @@ def gaussian_hotspot(
 
     # Coordinates are computed in at-least-f32 regardless of the storage dtype
     # so that bf16 runs still place the bump at the right cells.
+    if torch.device(device).type == "cpu":
+        # On the host the block is evaluated with numpy, in the same
+        # coordinate dtype: one thread, and every element of a contiguous
+        # array through the same vector routine (the tail by masked loads),
+        # so a cell's value depends on its coordinates alone, never on the
+        # intra-op thread count or on where the block starts.  torch's CPU
+        # exp splits the block between threads, and a thread's share can
+        # round differently from run to run.
+        ndt = np.float64 if dtype == torch.float64 else np.float32
+        xs = (np.arange(x0, x1, dtype=ndt) + 0.5) * cfg.dx
+        ys = (np.arange(y0, y1, dtype=ndt) + 0.5) * cfg.dy
+        r2 = (xs[None, :] - xc) ** 2 + (ys[:, None] - yc) ** 2
+        u = cfg.ic.A * np.exp(-r2 / (2.0 * sig * sig))
+        return torch.from_numpy(u).to(dtype)
     coord_dtype = torch.float64 if dtype == torch.float64 else torch.float32
     x = (torch.arange(x0, x1, dtype=coord_dtype, device=device) + 0.5) * cfg.dx
     y = (torch.arange(y0, y1, dtype=coord_dtype, device=device) + 0.5) * cfg.dy

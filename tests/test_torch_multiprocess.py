@@ -59,12 +59,6 @@ WORKER = textwrap.dedent("""
     sys.path.insert(0, {repo!r})
     import torch
     import torch.distributed as dist
-    # One intra-op thread: torch's CPU exp splits a tile's IC between two
-    # threads, and in a fresh process the second thread's half rounds
-    # differently now and then (seen in about one in fifty fresh
-    # single-process runs too), which a byte-for-byte comparison with the
-    # reference run would catch.
-    torch.set_num_threads(1)
     from climate_sim_tpu_torch.parallel import mesh as mesh_mod
     from climate_sim_tpu_torch.ops import init as init_mod
     from climate_sim_tpu_torch.io import datasets
@@ -107,6 +101,21 @@ WORKER = textwrap.dedent("""
                 raise OSError(28, "No space left on device (simulated)")
         driver.ShardedSnapshotWriter = Boom
 
+    if os.environ.get("MP_KILL_AFTER_RECORD"):
+        # Hard-kill every rank right after its regions of that record are
+        # synced: os._exit skips every destructor and atexit hook, as a
+        # scheduler killing the job mid-run would.
+        from climate_sim_tpu_torch.io import snapshots
+        _write_shards = snapshots.ShardedSnapshotWriter.write_shards
+        def write_then_die(self, regions, step_index=None):
+            idx = _write_shards(self, regions, step_index)
+            if idx >= int(os.environ["MP_KILL_AFTER_RECORD"]):
+                self.sync()
+                print("MP_KILLED_AT", idx, flush=True)
+                os._exit(137)
+            return idx
+        snapshots.ShardedSnapshotWriter.write_shards = write_then_die
+
     if os.environ.get("MP_AUTO"):   # torchrun's environment
         os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(nproc),
                           MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
@@ -148,16 +157,6 @@ WORKER = textwrap.dedent("""
 """).format(repo=REPO)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The reference runs in this process on one intra-op thread, as the
-    workers do (see WORKER)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def free_port():
     s = socket.socket()
     s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -167,17 +166,31 @@ def free_port():
     return port
 
 
-def spawn(nproc, tiles, args, env=None, timeout=180):
+def start(nproc, tiles, args, env=None, timeout=180):
     """``nproc`` ranks of WORKER (``tiles`` CPU tiles each, or "cli": the
-    CLI on one); one retry on a lost port."""
+    CLI on one), run to their end; every rank still running when the
+    group outlasts ``timeout`` seconds is killed, and the test fails."""
+    port = str(free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", WORKER, str(i), port, str(nproc), str(tiles), *args],
+        cwd=REPO, env={**os.environ, **(env or {})},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(nproc)]
+    deadline = time.monotonic() + timeout
+    try:
+        outs = [p.communicate(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return procs, outs
+
+
+def spawn(nproc, tiles, args, env=None, timeout=180):
+    """:func:`start`, with one retry on a lost port."""
     for attempt in range(2):
-        port = str(free_port())
-        procs = [subprocess.Popen(
-            [sys.executable, "-c", WORKER, str(i), port, str(nproc), str(tiles), *args],
-            cwd=REPO, env={**os.environ, **(env or {})},
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for i in range(nproc)]
-        outs = [p.communicate(timeout=timeout) for p in procs]
+        procs, outs = start(nproc, tiles, args, env, timeout)
         if all(p.returncode == 0 for p in procs) or attempt == 1:
             return procs, outs
     raise AssertionError("unreachable")
@@ -282,6 +295,60 @@ def test_paths_across_ranks_match_single_process(tmp_path, case, nproc, tiles, a
     assert f"path: {path}" in outs[0][0]
     got = str(tmp_path / "mp" / "snapshots.nc")
     assert read(got) == read(single(tmp_path, "single", nproc * tiles, args))
+
+
+def test_kill_mid_run_then_restart_reproduces_the_uninterrupted_run(tmp_path):
+    """The JAX package's drill (tests/test_multihost.py, four processes):
+    four ranks are hard-killed right after record 2 (step 8) is synced; the
+    file holds exactly the 3 records written, and a four-rank restart from
+    its last record reproduces the uninterrupted run's remaining records
+    bit for bit (the same cadence, so the same pass grouping; the records
+    are f64 of the f32 field, so the round trip is exact)."""
+    args = ["--nx=128", "--ny=64", "--steps=16", "--out_every=4", "--kernel=jnp"]
+    deadline = time.monotonic() + 120
+    procs, outs = start(4, 1, args + [f"--output.dir={tmp_path}/killed"],
+                        env={"MP_KILL_AFTER_RECORD": "2"}, timeout=60)
+    for i, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 137, f"rank {i} exit {p.returncode}:\n{out[-2000:]}\n{err[-2000:]}"
+        assert "MP_KILLED_AT 2" in out and "MP_OK" not in out
+    killed = str(tmp_path / "killed" / "snapshots.nc")
+    with NetCDFFile(killed) as ds:
+        assert ds.dimensions["time"] == 3
+    whole = frames(single(tmp_path, "uninterrupted", 4, args))
+    assert whole.shape[0] == 4
+    np.testing.assert_array_equal(frames(killed), whole[:3])
+
+    resume = [*args, "--steps=8", "--ic.mode=file", f"--ic.path={killed}"]
+    # spawn may try twice: each attempt gets half of what is left
+    procs, outs = spawn(4, 1, resume + [f"--output.dir={tmp_path}/resumed"],
+                        timeout=max(1.0, (deadline - time.monotonic()) / 2))
+    assert_ok(procs, outs)
+    resumed = frames(str(tmp_path / "resumed" / "snapshots.nc"))
+    assert resumed.shape[0] == 2  # steps 8 and 12 of the whole run
+    np.testing.assert_array_equal(resumed, whole[2:])
+
+
+def test_remainder_tiles_with_k2_across_ranks_match_single_process_and_jax(tmp_path):
+    """The per-step path on the reference's remainder tiles with the kernel
+    named (K2's plain version) across four ranks: a 2x2 mesh over a grid
+    the carrier cannot stage (three torus rows on two tiles), so the
+    driver takes it with its warning.  The file is the single-process
+    run's byte for byte, and within the f32 tolerance of JAX's run."""
+    size = ["--nx=64", "--ny=3", "--bc=periodic", *PHYS, "--steps=8", "--out_every=4",
+            "--write_final=true"]
+    args = [*size, "--kernel=pallas", "--mesh.x=2", "--mesh.y=2"]
+    cfg = tconfig.merged_config(None, args)
+    assert thalo.build_carrier_slab_advance(cfg, tmesh.make_mesh(2, 2, ["cpu"] * 4), cfg.dt) is None
+    procs, outs = spawn(4, 1, args + [f"--output.dir={tmp_path}/mp"], timeout=60)
+    assert_ok(procs, outs)
+    assert "path: remainder per-step, K2 plain version" in outs[0][0]
+    assert "fits no carrier layout" in outs[0][1]
+    got = str(tmp_path / "mp" / "snapshots.nc")
+    assert read(got) == read(single(tmp_path, "single", 4, args))
+
+    jcfg = jconfig.merged_config(None, [*size, "--kernel=jnp", f"--output.dir={tmp_path}/jax"])
+    jres = jdriver.run_simulation(jcfg, devices=jax.devices()[:1])
+    np.testing.assert_allclose(frames(got), frames(jres.output_path), rtol=0, atol=2e-5)
 
 
 def test_auto_reads_the_torchrun_environment(tmp_path):
