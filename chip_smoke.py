@@ -47,8 +47,11 @@ Phases, each of which raises on failure (nothing is caught):
    2 ranks of 2 tiles, and a 4-rank restart from the slab run's file, each
    file byte-identical to its single-process counterpart, the launches
    summed over the ranks equal to the pass schedule, the log on rank 0
-   only (and, with four cards, the slab and carrier runs one rank per card
-   over NCCL beside the single-process mesh over the four cards);
+   only (and, with four cards, one rank per card over NCCL: the slab,
+   carrier and overlap runs, bench_4096's per-step path with torch ops and
+   the per-step path with K2 on the remainder tiles of a 2^21 x 3 grid,
+   each file byte-identical to the single-process mesh over the four
+   cards, its rate beside that mesh's);
 9. the port's tools, each through its entry point: an IC file from
    ``scripts/torch_generate_ic.py`` at 4096² run through the CLI and held
    to the preset run; ``scripts/torch_hw_conformance.py`` (every path x
@@ -56,7 +59,13 @@ Phases, each of which raises on failure (nothing is caught):
    ``scripts/torch_run_benchmark.py`` on the ``cuda`` and ``multiproc``
    platforms (the CSV rows printed); ``scripts/torch_trace_rate.py`` at
    bench_4096; ``scripts/torch_hw_rates.py`` (each path's rate against
-   K1's, held to its band);
+   K1's, held to its band); then the study tools (``phase_study``):
+   ``scripts/torch_bf16_study.py`` at its defaults (12 error rows and
+   both perf lines, through K1), ``scripts/torch_sharded_path_bench.py``
+   and ``scripts/torch_carrier_bench.py --single`` on a 1x1 mesh of the
+   card (each path's field within SHARDED_ATOL of K1's), and bench_4096's
+   snapshots read back through ``climate_sim_tpu_torch.visualization``
+   (frame 0 the IC, the last frame the run's field, bit for bit);
 10. K2-K5 per pass (launches replayed from a CUDA graph, so the card's
    time and not the wrappers' host time is measured) beside their plain
    versions (K5 on a 2009x2001 carrier
@@ -71,15 +80,18 @@ Phases, each of which raises on failure (nothing is caught):
 The second line before the last is a JSON summary of the kernels: each
 kernel's ``launches`` sum the runs of phases 4, 7 and 8 (the paths' own
 runs, the multi-process ranks' included), and its ``tools_launches`` count
-phase 9's runs in this process apart from them; the script fails if either
-is 0.  Then the card's name and power limit from nvidia-smi; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
+phase 9's runs in this process (the study tools' among them) apart from
+them; the script fails if either is 0.  Then the card's name and power
+limit from nvidia-smi; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 repository beside it, the script exits non-zero and prints no result.
 
 ``python3 chip_smoke.py --multiprocess-only`` runs phases 1 and 2, the
 three phase-7 runs that the multi-process runs are held to, and the
 multi-process runs (with four cards, the NCCL runs too);
-``python3 chip_smoke.py --tools-only`` runs phases 1, 2 and 9.
+``python3 chip_smoke.py --nccl-only`` phases 1 and 2 and the NCCL runs
+with their single-process references (it needs four cards);
+``python3 chip_smoke.py --tools-only`` runs phases 1, 2 and 9's tools;
+``python3 chip_smoke.py --study-only`` phases 1, 2 and ``phase_study``.
 """
 
 from __future__ import annotations
@@ -521,26 +533,29 @@ def phase_tile_kernels_vs_plain(torch, device):
                 name, e = compare(torch, f"K2 {mx}x{my} {bc_class} {dtype}", got, want, dtype)
                 worst["K2"][name] = max(worst["K2"][name], e)
                 cases["K2"] += 1
-    # K2 on the padded remainder tiles of the per-step path at 4001² on
-    # 2x2 (phase 8), under that run's weights.
+    # K2 on the padded remainder tiles of the per-step paths: 4001² on 2x2
+    # (phase 8) and REMAINDER_GRID on 2x2 (the NCCL ranks of phase 8), each
+    # under its run's weights.
     from climate_sim_tpu_torch.parallel.mesh import split_sizes
 
-    rem_cfg, rem_dt = bench_config(CARRIER_GRID)
-    rem_shapes = sorted({(h + 2, w + 2) for h in split_sizes(CARRIER_GRID, 2)
-                         for w in split_sizes(CARRIER_GRID, 2)})
-    rem_cases = 0
-    for h, w in rem_shapes:
-        for dtype in (torch.float32, torch.float64, torch.bfloat16):
-            up = edge_parked(torch, h, w, seed=h + w, device=device).to(dtype)
-            got = sh.prepadded_kernel_step(up, rem_cfg, rem_dt)
-            torch.cuda.synchronize(device)
-            want = sh.prepadded_step_plain(up, rem_cfg, rem_dt)
-            name, e = compare(torch, f"K2 remainder tile {h}x{w} {dtype}", got, want, dtype)
-            worst["K2"][name] = max(worst["K2"][name], e)
-            rem_cases += 1
-    cases["K2"] += rem_cases
-    print(f"[tile-kernels-vs-plain] K2 on the padded remainder tiles of {CARRIER_GRID}² on"
-          f" 2x2 {rem_shapes} x 3 dtypes: {rem_cases} cases ok")
+    for nx, ny in ((CARRIER_GRID, CARRIER_GRID), REMAINDER_GRID):
+        rem_cfg, rem_dt = bench_config(nx, ny)
+        rem_shapes = sorted({(h + 2, w + 2) for h in split_sizes(ny, 2)
+                             for w in split_sizes(nx, 2)})
+        rem_cases = 0
+        for h, w in rem_shapes:
+            for dtype in (torch.float32, torch.float64, torch.bfloat16):
+                up = edge_parked(torch, h, w, seed=h + w, device=device).to(dtype)
+                got = sh.prepadded_kernel_step(up, rem_cfg, rem_dt)
+                torch.cuda.synchronize(device)
+                want = sh.prepadded_step_plain(up, rem_cfg, rem_dt)
+                name, e = compare(torch, f"K2 remainder tile {h}x{w} {dtype}", got, want,
+                                  dtype)
+                worst["K2"][name] = max(worst["K2"][name], e)
+                rem_cases += 1
+        cases["K2"] += rem_cases
+        print(f"[tile-kernels-vs-plain] K2 on the padded remainder tiles of {nx}x{ny} on"
+              f" 2x2 {rem_shapes} x 3 dtypes: {rem_cases} cases ok")
     for n in ("K2", "K3", "K4"):
         errs = ", ".join(f"{d} {e:.3g}" for d, e in worst[n].items())
         print(f"[tile-kernels-vs-plain] {n}: {cases[n]} cases ok; max abs err {errs}")
@@ -745,12 +760,13 @@ def phase_sharded_run(torch, device, label, cfg_path, extra, mesh_xy, kernel, tm
     return counts[kernel], err, cfg.resolved_output_path()
 
 
-def bench_config(n):
-    """bench_4096's config at n² with the kernel named, and its clamped dt."""
+def bench_config(n, ny=None):
+    """bench_4096's config at n x ny (ny = n by default) with the kernel
+    named, and its clamped dt."""
     from climate_sim_tpu_torch.config import merged_config
     from climate_sim_tpu_torch.ops.stability import clamp_dt
 
-    cfg = merged_config(BENCH_CFG, ["--kernel=pallas", f"--nx={n}", f"--ny={n}"])
+    cfg = merged_config(BENCH_CFG, ["--kernel=pallas", f"--nx={n}", f"--ny={ny or n}"])
     return cfg, clamp_dt(cfg.dt, cfg.dx, cfg.dy, cfg.vx, cfg.vy, cfg.D)[0]
 
 
@@ -871,6 +887,21 @@ MP_RUNS = (
      2, 2, "K3"),
 )
 RESTART_STEPS = ["--steps=200", "--out_every=100"]
+# The runs one rank per card over NCCL (four cards): (label, config,
+# overrides, kernel launched, per-step).  MP_RUNS' slab, carrier and
+# overlap runs as 4 ranks x 1 tile; bench_4096 on the per-step path with
+# torch ops (no kernel); and K2 on the remainder tiles of a grid the
+# carrier cannot stage (three torus rows on two tiles, as in
+# tests/test_torch_multiprocess.py, 2^20 columns a tile).
+REMAINDER_GRID = (1 << 21, 3)  # (nx, ny)
+NCCL_RUNS = (
+    *((label.replace("2_ranks_x_2_tiles", "4_ranks"), cfg_path, extra, kernel, False)
+      for label, cfg_path, extra, _, _, kernel in MP_RUNS),
+    ("bench_4096_perstep_torch_ops", BENCH_CFG,
+     ["--steps=100", "--out_every=50", "--kernel=jnp"], None, True),
+    (f"bench_{REMAINDER_GRID[0]}x{REMAINDER_GRID[1]}_remainder_perstep", BENCH_CFG,
+     [*BENCH_STEPS, f"--nx={REMAINDER_GRID[0]}", f"--ny={REMAINDER_GRID[1]}"], "K2", True),
+)
 
 
 def free_port():
@@ -941,6 +972,47 @@ def same_file(label, got, want):
         fail(f"{label}: {got} is not byte-identical to {want}")
 
 
+GLOO = "gloo (host-staged; ranks share a card)"
+
+
+def mp_run(tmp, label, cfg_path, args, nproc, tiles, kernel, transport, want_file,
+           per_step=False):
+    """One multi-process run on a 2x2 mesh, checked; gloo runs share the
+    first card.  ``kernel`` is the one kernel launched (None: torch ops
+    only), 5 times a tile and pass for K3, once for the others, and once a
+    tile and step on a per-step path.  Returns (the run's file, the launch
+    counts summed over the ranks, its throughput line)."""
+    from climate_sim_tpu_torch.config import merged_config
+
+    px, py = 2, 2
+    full = [f"--config={cfg_path}", "--kernel=pallas", *args, f"--mesh.x={px}",
+            f"--mesh.y={py}", f"--output.dir={os.path.join(tmp, label)}", "--write_final=true"]
+    cfg = merged_config(cfg_path, full)
+    t0 = time.perf_counter()
+    results = run_ranks(nproc, tiles, full, one_card_env() if transport == GLOO else None)
+    wall = time.perf_counter() - t0
+    out0, counts = check_ranks(label, results, transport)
+    m = re.search(r"^passes: timed=(\d+) warmup=(\d+)$", out0, re.M)
+    expect = cfg.steps if per_step else expected_tile_passes(cfg, px, py)
+    per_pass = 5 if kernel == "K3" else 1
+    want = {name: 0 for name in KERNEL_NAMES}
+    if kernel:
+        want[kernel] = per_pass * (expect + int(m.group(2))) * px * py
+    if int(m.group(1)) != expect or counts != want:
+        fail(f"{label}: launches over the ranks {counts} != {want}")
+    same_file(label, cfg.resolved_output_path(), want_file)
+    rate = re.search(r"^throughput: (.*)$", out0, re.M).group(1)
+    timing = re.search(r"^timing: (.*)$", out0, re.M).group(1)
+    unit = "steps" if per_step else "passes"
+    what = (f"{kernel} launches {counts[kernel]} = {per_pass} x ({expect} timed +"
+            f" {m.group(2)} warm-up {unit}) x {px * py} tiles" if kernel
+            else f"no kernel launched ({expect} timed steps of torch ops)")
+    print(f"[multiprocess:{label}] {nproc} ranks x {tiles} tile(s), transport {transport}:"
+          f" exit 0 on every rank, {what}; file byte-identical to the single-process mesh"
+          f" run; timing: {timing}; throughput: {rate}; {wall:.1f} s with process start")
+    return cfg.resolved_output_path(), counts, rate
+
+
 def phase_multiprocess(torch, device, tmp, refs):
     """The multi-process driver through ``--distributed=127.0.0.1:PORT,N,I``
     on the card: bench_4096 on 4 ranks (slab, K4), the carrier at 4001² on
@@ -951,53 +1023,26 @@ def phase_multiprocess(torch, device, tmp, refs):
     fallback, launches summed over the ranks equal to the pass schedule
     times the tiles (every other kernel 0), and a snapshot file
     byte-identical to the single-process mesh run of the same config
-    (``refs[label]``, phase 7's; or the restart's, made here).  With four
-    or more cards, the slab and carrier runs also go one rank per card over
-    NCCL, beside the single-process mesh over four cards.  Returns the
+    (``refs[label]``, phase 7's; or the restart's, made here).  Returns the
     launch counts and the throughput lines."""
     from climate_sim_tpu_torch.config import merged_config
     from climate_sim_tpu_torch.runtime import driver
 
     launches = {n: 0 for n in KERNEL_NAMES}
     rates = {}
-    gloo = "gloo (host-staged; ranks share a card)"
 
-    def run(label, cfg_path, args, nproc, tiles, kernel, transport, want_file):
-        """One multi-process run, checked; gloo runs share the first card."""
-        px, py = 2, 2
-        full = [f"--config={cfg_path}", *args, f"--mesh.x={px}", f"--mesh.y={py}",
-                "--kernel=pallas", f"--output.dir={os.path.join(tmp, label)}",
-                "--write_final=true"]
-        cfg = merged_config(cfg_path, full)
-        t0 = time.perf_counter()
-        results = run_ranks(nproc, tiles, full, one_card_env() if transport == gloo else None)
-        wall = time.perf_counter() - t0
-        out0, counts = check_ranks(label, results, transport)
-        m = re.search(r"^passes: timed=(\d+) warmup=(\d+)$", out0, re.M)
-        expect = expected_tile_passes(cfg, px, py)
-        per_pass = 5 if kernel == "K3" else 1
-        want = {name: 0 for name in KERNEL_NAMES}
-        want[kernel] = per_pass * (expect + int(m.group(2))) * px * py
-        if int(m.group(1)) != expect or counts != want:
-            fail(f"{label}: launches over the ranks {counts} != {want}")
-        same_file(label, cfg.resolved_output_path(), want_file)
-        rate = re.search(r"^throughput: (.*)$", out0, re.M).group(1)
-        timing = re.search(r"^timing: (.*)$", out0, re.M).group(1)
-        print(f"[multiprocess:{label}] {nproc} ranks x {tiles} tile(s), transport"
-              f" {transport}: exit 0 on every rank, {kernel} launches {counts[kernel]} ="
-              f" {per_pass} x ({expect} timed + {m.group(2)} warm-up passes) x {px * py}"
-              f" tiles; file byte-identical to the single-process mesh run; timing:"
-              f" {timing}; throughput: {rate}; {wall:.1f} s with process start")
+    def run(label, cfg_path, args, nproc, tiles, kernel, want_file):
+        path, counts, rates[label] = mp_run(tmp, label, cfg_path, args, nproc, tiles, kernel,
+                                            GLOO, want_file)
         launches[kernel] += counts[kernel]
-        rates[label] = rate
-        return cfg.resolved_output_path()
+        return path
 
     slab_file = None
     for label, cfg_path, extra, nproc, tiles, kernel in MP_RUNS:
         ref = refs.get(label)
         if ref is None:
             raise SystemExit(f"chip_smoke: no single-process reference for {label}")
-        path = run(label, cfg_path, extra, nproc, tiles, kernel, gloo, ref)
+        path = run(label, cfg_path, extra, nproc, tiles, kernel, ref)
         slab_file = slab_file or path
 
     # The restart: 4 ranks read their regions of the slab run's last record.
@@ -1007,26 +1052,45 @@ def phase_multiprocess(torch, device, tmp, refs):
     ref_cfg = merged_config(BENCH_CFG, ref_args)
     with contextlib.redirect_stdout(io.StringIO()):
         driver.run_simulation(ref_cfg, [device] * 4)
-    run("bench_4096_4_ranks_restart", BENCH_CFG, restart, 4, 1, "K4", gloo,
+    run("bench_4096_4_ranks_restart", BENCH_CFG, restart, 4, 1, "K4",
         ref_cfg.resolved_output_path())
+    return launches, rates
 
+
+def phase_nccl(torch, tmp):
+    """With four or more cards, NCCL_RUNS one rank per card over NCCL, each
+    held to the single-process 2x2 mesh over the same four cards (its file
+    byte for byte, its rate printed beside), with the checks of
+    :func:`mp_run`; with fewer cards, a line that they need 4.  Returns the
+    launch counts over the ranks and the throughput lines."""
+    from climate_sim_tpu_torch.config import merged_config
+    from climate_sim_tpu_torch.runtime import driver
+
+    launches = {n: 0 for n in KERNEL_NAMES}
+    rates = {}
     n_cards = torch.cuda.device_count()
-    if n_cards >= 4:
-        cards = [torch.device("cuda", i) for i in range(4)]
-        for label, cfg_path, extra, nproc, tiles, kernel in MP_RUNS[:2]:
-            one = f"{label}_4_cards_single_process"
-            args = [*extra, "--mesh.x=2", "--mesh.y=2", "--kernel=pallas", "--write_final=true",
-                    f"--output.dir={os.path.join(tmp, one)}"]
-            cfg = merged_config(cfg_path, args)
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                driver.run_simulation(cfg, cards)
-            rates[one] = re.search(r"^throughput: (.*)$", buf.getvalue(), re.M).group(1)
-            print(f"[multiprocess:{one}] throughput: {rates[one]}")
-            run(f"{label}_nccl", cfg_path, extra, 4, 1, kernel, "nccl",
-                cfg.resolved_output_path())
-    else:
+    if n_cards < 4:
         print(f"[multiprocess] {n_cards} card(s): the one-rank-per-card NCCL runs need 4")
+        return launches, rates
+    cards = [torch.device("cuda", i) for i in range(4)]
+    for label, cfg_path, extra, kernel, per_step in NCCL_RUNS:
+        one = f"{label}_4_cards_single_process"
+        args = ["--kernel=pallas", *extra, "--mesh.x=2", "--mesh.y=2", "--write_final=true",
+                f"--output.dir={os.path.join(tmp, one)}"]
+        cfg = merged_config(cfg_path, args)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            driver.run_simulation(cfg, cards)
+        out = buf.getvalue()
+        path = re.search(r"  path: (.*)$", out, re.M)
+        rates[one] = re.search(r"^throughput: (.*)$", out, re.M).group(1)
+        print(f"[multiprocess:{one}] path: {path.group(1) if path else '?'};"
+              f" throughput: {rates[one]}")
+        _, counts, rates[f"{label}_nccl"] = mp_run(
+            tmp, f"{label}_nccl", cfg_path, extra, 4, 1, kernel, "nccl",
+            cfg.resolved_output_path(), per_step)
+        if kernel:
+            launches[kernel] += counts[kernel]
     return launches, rates
 
 
@@ -1166,6 +1230,84 @@ def phase_tools(torch, device, tmp):
         fail(f"torch_hw_rates exit code {rc}")
     counts = read_counts()
     print(f"[tools] launches in this process: {counts}; {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+STUDY_ROWS = 12  # the bf16 study's 4 BC classes x 3 horizons
+# The field comparisons each path bench prints at its defaults: slab,
+# overlap and perstep beside single; the carrier beside K1 at 2 sizes.
+STUDY_DIFFS = {"torch_sharded_path_bench": 3, "torch_carrier_bench": 2}
+
+
+def phase_study(torch, device, tmp):
+    """The port's study tools on the card, each through its entry point at
+    its defaults: ``torch_bf16_study`` (bf16 against f32 from one bf16 IC,
+    4 BC classes x 3 horizons at 1024², then f32 and bf16 throughput at
+    4096², all through K1); ``torch_sharded_path_bench`` (single, slab,
+    overlap and perstep on a 1x1 mesh of the card at 4096²) and
+    ``torch_carrier_bench --single`` (the carrier and K1 at 4000² and
+    5000²), each path's field after one chunk within SHARDED_ATOL of
+    K1's; then bench_4096 through the driver, 1000 steps with output on,
+    read back through ``climate_sim_tpu_torch.visualization`` (numpy
+    only): frame 0 the IC and the last frame the run's own field, bit for
+    bit.  Returns the launch counts of the phase, apart from the paths'."""
+    import numpy as np
+
+    from climate_sim_tpu_torch import visualization as vis
+    from climate_sim_tpu_torch.config import merged_config
+    from climate_sim_tpu_torch.ops.init import gaussian_hotspot
+    from climate_sim_tpu_torch.runtime import driver
+
+    t0 = time.perf_counter()
+    reset_counts()
+    rc, out = captured(load_script("torch_bf16_study").main, [])
+    k1 = read_counts()["K1"]
+    for line in out.strip().splitlines():
+        print(f"[study] bf16_study {line}")
+    rows = [ln.split() for ln in out.splitlines()[2:] if len(ln.split()) == 5]
+    perf = re.findall(r"^perf (f32|bf16): (\S+) Gpt/s", out, re.M)
+    if (rc != 0 or len(rows) != STUDY_ROWS or [p for p, _ in perf] != ["f32", "bf16"]
+            or not all(np.isfinite(float(v)) for row in rows for v in row[2:])):
+        fail(f"torch_bf16_study exit code {rc}: {len(rows)} error rows, perf lines {perf}")
+    if k1 < 1 or any(n for name, n in read_counts().items() if name != "K1"):
+        fail(f"torch_bf16_study launched {read_counts()}, not K1 alone")
+    print(f"[study] bf16_study: {len(rows)} error rows, bf16/f32 throughput"
+          f" {float(perf[1][1]) / float(perf[0][1]):.3f}; K1 launches {k1}")
+
+    for name, args in (("torch_sharded_path_bench", []),
+                       ("torch_carrier_bench", ["--single"])):
+        rc, out = captured(load_script(name).main, args)
+        for line in out.strip().splitlines():
+            print(f"[study] {name.removeprefix('torch_')} {line}")
+        diffs = [float(d) for d in re.findall(r"max abs diff (\S+)$", out, re.M)]
+        if (rc != 0 or "unavailable" in out or len(diffs) != STUDY_DIFFS[name]
+                or not all(d <= SHARDED_ATOL for d in diffs)):
+            fail(f"{name} exit code {rc}: field differences {diffs} (tol {SHARDED_ATOL})")
+
+    label = "study_bench_4096"
+    args = [*BENCH_STEPS, "--kernel=pallas", "--write_final=true",
+            f"--output.dir={os.path.join(tmp, label)}"]
+    cfg = merged_config(BENCH_CFG, args)
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = driver.run_simulation(cfg, device)
+    run_dir = os.path.dirname(cfg.resolved_output_path())
+    steps = vis.list_available_steps(run_dir)
+    meta = vis.load_metadata(run_dir)
+    first = vis.load_global(run_dir, steps[0])
+    with vis.SnapshotReader(run_dir) as reader:
+        last = reader.frame(steps[-1])
+    ic = gaussian_hotspot(cfg, torch.float32, device).to(torch.float64).cpu().numpy()
+    final = res.u.to(torch.float64).cpu().numpy()
+    want_steps = -(-cfg.steps // cfg.out_every) + 1
+    if len(steps) != want_steps or not np.array_equal(first, ic) or not np.array_equal(last, final):
+        fail(f"{label}: read back through climate_sim_tpu_torch.visualization: {len(steps)}"
+             f" frames (want {want_steps}), frame 0 == IC {np.array_equal(first, ic)}, last"
+             f" frame == the run's field {np.array_equal(last, final)}")
+    print(f"[study] {label}: {len(steps)} frames read back through"
+          f" climate_sim_tpu_torch.visualization ({len(meta)} attributes); frame 0 is the"
+          f" IC and the last the run's own field, bit for bit")
+    counts = read_counts()
+    print(f"[study] launches in this phase: {counts}; {time.perf_counter() - t0:.1f} s")
     return counts
 
 
@@ -1405,23 +1547,29 @@ def phase_profile(torch, device, tmp, label, args, n_devices, kernel):
     return walls, total_ms
 
 
-def multiprocess_only(torch, device) -> int:
+def multiprocess_only(torch, device, nccl_only) -> int:
     """``python3 chip_smoke.py --multiprocess-only``: phase 7's three
-    references and the multi-process phase alone (on four cards, the NCCL
-    runs with them); ends with a JSON line of the phase's launches and
+    references and the multi-process phase alone, then the NCCL runs (on
+    four cards); ``--nccl-only``: the NCCL runs and their single-process
+    references alone.  Ends with a JSON line of the launches and
     throughput lines, not the ``ok`` line of a full run."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        refs = {}
-        for run, ref in zip(MP_RUNS, ("bench_4096_2x2_slab", CARRIER_RUNS[0][0],
-                                      "bench_4096_2x2_overlap")):
-            label, cfg_path, extra, _, _, kernel = run
-            refs[label] = phase_sharded_run(torch, device, ref, cfg_path, extra, (2, 2),
-                                            kernel, tmp)[2]
-        launches, rates = phase_multiprocess(torch, device, tmp, refs)
+        launches, rates = {n: 0 for n in KERNEL_NAMES}, {}
+        if not nccl_only:
+            refs = {}
+            for run, ref in zip(MP_RUNS, ("bench_4096_2x2_slab", CARRIER_RUNS[0][0],
+                                          "bench_4096_2x2_overlap")):
+                label, cfg_path, extra, _, _, kernel = run
+                refs[label] = phase_sharded_run(torch, device, ref, cfg_path, extra, (2, 2),
+                                                kernel, tmp)[2]
+            launches, rates = phase_multiprocess(torch, device, tmp, refs)
+        nccl_launches, nccl_rates = phase_nccl(torch, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(json.dumps({"multiprocess": {"launches": launches, "throughput": rates}}))
+    print(json.dumps({"multiprocess": {
+        "launches": {n: launches[n] + nccl_launches[n] for n in KERNEL_NAMES},
+        "throughput": {**rates, **nccl_rates}}}))
     return 0
 
 
@@ -1442,16 +1590,18 @@ def main() -> int:
 
     name, smi = phase_device(torch)
     phase_build()
-    if sys.argv[1:] == ["--multiprocess-only"]:
-        return multiprocess_only(torch, device)
-    if sys.argv[1:] == ["--tools-only"]:
-        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-        try:
-            tools = phase_tools(torch, device, tmp)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
-        print(json.dumps({"tools": {"launches": tools}}))
-        return 0
+    if sys.argv[1:] in (["--multiprocess-only"], ["--nccl-only"]):
+        return multiprocess_only(torch, device, sys.argv[1] == "--nccl-only")
+    for flag, phase in (("--tools-only", phase_tools), ("--study-only", phase_study)):
+        if sys.argv[1:] == [flag]:
+            tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+            try:
+                counts = phase(torch, device, tmp)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+            print(json.dumps({flag.removeprefix("--").removesuffix("-only"):
+                              {"launches": counts}}))
+            return 0
     cases, worst = phase_kernel_vs_plain(torch, device)
     tile_cases, tile_worst = phase_tile_kernels_vs_plain(torch, device)
     tile_cases["K5"], tile_worst["K5"] = phase_carrier_kernel_vs_plain(torch, device)
@@ -1482,11 +1632,14 @@ def main() -> int:
                         (files["bench_4096_2x2_slab"], files[CARRIER_RUNS[0][0]],
                          files["bench_4096_2x2_overlap"])))
         mp_launches, _ = phase_multiprocess(torch, device, tmp, refs)
+        nccl_launches, _ = phase_nccl(torch, tmp)
         for n in KERNEL_NAMES:
-            launches[n] += mp_launches[n]
+            launches[n] += mp_launches[n] + nccl_launches[n]
         # The tools' launches (their timing loops included) stand beside the
         # paths' own counts, never in them.
         tools = phase_tools(torch, device, tmp)
+        for n, count in phase_study(torch, device, tmp).items():
+            tools[n] += count
         k1_times = phase_timing(torch, device)
         tile_times, _, bounds, library = phase_tile_timing(torch, device)
         phase_profile(torch, device, tmp, f"bench_{BENCH_GRID} single device",

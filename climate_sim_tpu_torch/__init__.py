@@ -13,6 +13,7 @@ Layers:
 * :mod:`climate_sim_tpu_torch.io`       — NetCDF codec + snapshots
 * :mod:`climate_sim_tpu_torch.runtime`  — driver + CLI
 * :mod:`climate_sim_tpu_torch.convert`  — config and field from the JAX package
+* :mod:`climate_sim_tpu_torch.visualization` — ``visualization/`` through the port's reader
 
 The package never imports ``jax``.
 """

@@ -1,0 +1,160 @@
+#!/usr/bin/env python3
+"""Line-coverage gate of the PyTorch port (stdlib only, no coverage.py).
+
+The port's counterpart of ``scripts/coverage_check.py``: ``sys.monitoring``
+(PEP 669, Python 3.12+) records the lines executed under
+``climate_sim_tpu_torch/`` while the port's tests (``tests/test_torch_*.py``
+by default) run in this process; each module's executable lines come from
+its code objects (``co_lines``).  Lines run only in a subprocess (the
+multi-process tests' ranks, the tools' fresh-process checks) are not seen.
+
+The port's tests compare it with the JAX package, so this gate needs JAX
+and runs on a CPU machine with the test suite's environment; it is not
+meant for the card.  Neither are the lines it reports as missed in the
+CUDA launch branches of ``ops/cuda_*.py`` and ``ops/_build.py``: those run
+only on a card, in ``chip_smoke.py``.
+
+Usage:
+    JAX_PLATFORMS=cpu python scripts/torch_coverage_check.py [--show-missing]
+        [--fail-under 90] [--target DIR ...] [pytest args...]
+
+Exit codes: pytest's own when it fails; 2 when the total line coverage is
+under --fail-under (default 90); else 0.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import sys
+from collections import defaultdict
+from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TARGET_DIRS = (os.path.join(REPO_ROOT, "climate_sim_tpu_torch"),)
+
+TOOL_ID = sys.monitoring.COVERAGE_ID
+
+# (path shown, executable lines, lines hit, percent, missed lines)
+Row = Tuple[str, int, int, float, List[int]]
+
+
+def executable_lines(path: str) -> Set[int]:
+    """Every source line that carries bytecode, from the compiled module's
+    code objects (line 0, where a module's code starts, is no source line:
+    the JAX gate counts it, and it is missed for modules whose first
+    statement is not on line 1)."""
+    with open(path, "rb") as fh:
+        code = compile(fh.read(), path, "exec")
+    lines: Set[int] = set()
+    stack = [code]
+    while stack:
+        co = stack.pop()
+        lines.update(ln for _s, _e, ln in co.co_lines() if ln)
+        stack.extend(c for c in co.co_consts if hasattr(c, "co_lines"))
+    return lines
+
+
+def record(pytest_args: Sequence[str], targets: Sequence[str]
+           ) -> Tuple[int, Dict[str, Set[int]]]:
+    """Run pytest in this process with line events on; returns (pytest's
+    exit code, {file under a target: lines executed})."""
+    targets = tuple(os.path.join(os.path.abspath(t), "") for t in targets)
+    executed: Dict[str, Set[int]] = defaultdict(set)
+
+    def on_line(code, lineno):
+        if code.co_filename.startswith(targets):
+            executed[code.co_filename].add(lineno)
+        # One event per code location is enough.
+        return sys.monitoring.DISABLE
+
+    sys.monitoring.use_tool_id(TOOL_ID, "torch_coverage_check")
+    sys.monitoring.register_callback(TOOL_ID, sys.monitoring.events.LINE, on_line)
+    sys.monitoring.set_events(TOOL_ID, sys.monitoring.events.LINE)
+    try:
+        import pytest
+
+        rc = int(pytest.main(list(pytest_args)))
+    finally:
+        sys.monitoring.set_events(TOOL_ID, 0)
+        sys.monitoring.free_tool_id(TOOL_ID)
+    return rc, executed
+
+
+def report(executed: Dict[str, Set[int]], targets: Iterable[str]
+           ) -> Tuple[List[Row], int, int]:
+    """(a row per .py file under the targets, lines hit, executable lines);
+    a file's path is shown from its target's parent directory."""
+    rows: List[Row] = []
+    total_exec = total_hit = 0
+    for target in targets:
+        target = os.path.abspath(target)
+        base = os.path.dirname(target)
+        for dirpath, _dirs, files in sorted(os.walk(target)):
+            if "__pycache__" in dirpath:
+                continue
+            for fn in sorted(f for f in files if f.endswith(".py")):
+                path = os.path.join(dirpath, fn)
+                lines = executable_lines(path)
+                hit = executed.get(path, set()) & lines
+                total_exec += len(lines)
+                total_hit += len(hit)
+                pct = 100.0 * len(hit) / len(lines) if lines else 100.0
+                rows.append((os.path.relpath(path, base), len(lines), len(hit), pct,
+                             sorted(lines - hit)))
+    return rows, total_hit, total_exec
+
+
+def compress(lines: List[int]) -> str:
+    """Sorted line numbers as ranges: 3-5, 9, 12-14."""
+    out = []
+    start = prev = lines[0]
+    for ln in lines[1:] + [None]:
+        if ln is not None and ln == prev + 1:
+            prev = ln
+            continue
+        out.append(str(start) if start == prev else f"{start}-{prev}")
+        if ln is not None:
+            start = prev = ln
+    return ", ".join(out)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--fail-under", type=float, default=90.0)
+    ap.add_argument("--show-missing", action="store_true")
+    ap.add_argument("--target", action="append", default=None,
+                    help="a package directory to measure (repeatable; default"
+                         " climate_sim_tpu_torch/)")
+    ap.add_argument("pytest_args", nargs="*", default=[])
+    a = ap.parse_args(argv)
+
+    targets = a.target or list(TARGET_DIRS)
+    pytest_args = a.pytest_args or [
+        *sorted(glob.glob(os.path.join(REPO_ROOT, "tests", "test_torch_*.py"))), "-q"]
+    rc, executed = record(pytest_args, targets)
+    rows, hit, total = report(executed, targets)
+
+    width = max((len(r[0]) for r in rows), default=10)
+    print(f"\n{'file':<{width}}  stmts   hit    cover")
+    for rel, n, h, pct, missing in rows:
+        print(f"{rel:<{width}}  {n:5d}  {h:5d}  {pct:6.1f}%")
+        if a.show_missing and missing:
+            print(f"  missing: {compress(missing)}")
+    total_pct = 100.0 * hit / total if total else 100.0
+    print(f"\nTOTAL: {hit}/{total} lines = {total_pct:.2f}%")
+
+    if rc != 0:
+        print("pytest FAILED", file=sys.stderr)
+        return rc
+    if total_pct < a.fail_under:
+        print(f"coverage {total_pct:.2f}% < fail-under {a.fail_under}%", file=sys.stderr)
+        return 2
+    print(f"coverage gate OK (>= {a.fail_under}%)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -284,14 +284,24 @@ def test_four_ranks_run_and_restart_through_the_cli(tmp_path):
                       "--max_devices=3"]),
     ("idle rank", 2, 2, [f"--config={BENCH}", "--nx=96", "--ny=64", "--kernel=pallas",
                          "--max_devices=2", "--diagnostics_every=1"]),
-], ids=["carrier", "remainder", "overlap", "uneven", "idle rank"])
+    # The runs chip_smoke.py makes over NCCL on four cards, at this size:
+    # the overlap path (K3 plain) and the per-step path with torch ops, one
+    # rank a tile; K2's remainder tiles are the test below.
+    ("overlap 4 ranks", 4, 1, [f"--config={BENCH}", "--nx=128", "--ny=64", "--kernel=pallas",
+                               "--halo_overlap=true", "--write_final=true"]),
+    ("per-step 4 ranks", 4, 1, [f"--config={BENCH}", "--nx=128", "--ny=64", "--kernel=jnp",
+                                "--write_final=true"]),
+], ids=["carrier", "remainder", "overlap", "uneven", "idle rank", "overlap 4 ranks",
+        "per-step 4 ranks"])
 def test_paths_across_ranks_match_single_process(tmp_path, case, nproc, tiles, args):
     args = ["--steps=8", "--out_every=4", *args]
     procs, outs = spawn(nproc, tiles, args + [f"--output.dir={tmp_path}/mp"])
     assert_ok(procs, outs)
     path = {"carrier": "carrier, K5 plain version", "overlap": "overlap, K3 plain version",
             "remainder": "remainder per-step, torch ops per step",
-            "uneven": "slab, K4 plain version", "idle rank": "slab, K4 plain version"}[case]
+            "uneven": "slab, K4 plain version", "idle rank": "slab, K4 plain version",
+            "overlap 4 ranks": "overlap, K3 plain version",
+            "per-step 4 ranks": "per-step, torch ops per step"}[case]
     assert f"path: {path}" in outs[0][0]
     got = str(tmp_path / "mp" / "snapshots.nc")
     assert read(got) == read(single(tmp_path, "single", nproc * tiles, args))
