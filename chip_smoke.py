@@ -65,7 +65,14 @@ Phases, each of which raises on failure (nothing is caught):
    and ``scripts/torch_carrier_bench.py --single`` on a 1x1 mesh of the
    card (each path's field within SHARDED_ATOL of K1's), and bench_4096's
    snapshots read back through ``climate_sim_tpu_torch.visualization``
-   (frame 0 the IC, the last frame the run's field, bit for bit);
+   (frame 0 the IC, the last frame the run's field, bit for bit); then the
+   exchange-latency model (``phase_latency``): ``scripts/torch_exchange_latency.py``
+   with 4 ranks sharing the card over gloo (2048² tiles, face-only and
+   ``--load``; with four cards also NCCL ranks one a card, 2 on 1x2 and 4
+   on 2x2 at 4096²), each line holding JAX's keys and ``rounds_per_iter``,
+   and ``scripts/torch_latency_bound.py`` on a 2x2 mesh of the card at
+   4096² (L in {0, 0.5, 1, 2} ms; the model fed the gloo latency a batch),
+   the exchange depth 2 and each slope inside [depth - 0.5, batches + 1];
 10. K2-K5 per pass (launches replayed from a CUDA graph, so the card's
    time and not the wrappers' host time is measured) beside their plain
    versions (K5 on a 2009x2001 carrier
@@ -80,18 +87,20 @@ Phases, each of which raises on failure (nothing is caught):
 The second line before the last is a JSON summary of the kernels: each
 kernel's ``launches`` sum the runs of phases 4, 7 and 8 (the paths' own
 runs, the multi-process ranks' included), and its ``tools_launches`` count
-phase 9's runs in this process (the study tools' among them) apart from
-them; the script fails if either is 0.  Then the card's name and power
+phase 9's runs in this process (the study tools' and the latency
+injection's among them) apart from them; the script fails if either is 0.  Then the card's name and power
 limit from nvidia-smi; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 repository beside it, the script exits non-zero and prints no result.
 
 ``python3 chip_smoke.py --multiprocess-only`` runs phases 1 and 2, the
 three phase-7 runs that the multi-process runs are held to, and the
 multi-process runs (with four cards, the NCCL runs too);
-``python3 chip_smoke.py --nccl-only`` phases 1 and 2 and the NCCL runs
-with their single-process references (it needs four cards);
+``python3 chip_smoke.py --nccl-only`` phases 1 and 2, the NCCL runs
+with their single-process references and the NCCL exchange-latency runs
+(it needs four cards);
 ``python3 chip_smoke.py --tools-only`` runs phases 1, 2 and 9's tools;
-``python3 chip_smoke.py --study-only`` phases 1, 2 and ``phase_study``.
+``python3 chip_smoke.py --study-only`` phases 1, 2 and ``phase_study``;
+``python3 chip_smoke.py --latency-only`` phases 1, 2 and ``phase_latency``.
 """
 
 from __future__ import annotations
@@ -1121,11 +1130,13 @@ def captured(fn, *args):
     return rc, buf.getvalue()
 
 
-def run_tool(args, timeout=TOOLS_TIMEOUT_S):
-    """A script as its own process group, killed whole if it outlasts
-    ``timeout`` (the scaling harness starts ranks of its own)."""
+def run_tool(args, timeout=TOOLS_TIMEOUT_S, env=None):
+    """A script as its own process group, with ``env`` added to this
+    process's environment, killed whole if it outlasts ``timeout`` (the
+    scaling harness starts ranks of its own)."""
     p = subprocess.Popen([sys.executable, *args], cwd=HERE, stdout=subprocess.PIPE,
-                         stderr=subprocess.PIPE, text=True, start_new_session=True)
+                         stderr=subprocess.PIPE, text=True, start_new_session=True,
+                         env={**os.environ, **(env or {})})
     try:
         out, err = p.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -1309,6 +1320,98 @@ def phase_study(torch, device, tmp):
     counts = read_counts()
     print(f"[study] launches in this phase: {counts}; {time.perf_counter() - t0:.1f} s")
     return counts
+
+
+# The exchange-latency runs: (ranks, mesh y, tile, --load).  Gloo ranks
+# share the first card; with four cards, NCCL ranks one per card.
+GLOO_LATENCY_RUNS = ((4, 2, 2048, False), (4, 2, 2048, True))
+NCCL_LATENCY_RUNS = ((2, 1, 4096, False), (2, 1, 4096, True),
+                     (4, 2, 4096, False), (4, 2, 4096, True))
+# scripts/exchange_latency.py's JSON keys, then the port's two.
+LATENCY_KEYS = ("ranks", "mesh", "tile", "iters", "load", "raw_s", "iter_cost_coll_s",
+                "iter_cost_ctrl_s", "exchange_cost_per_iter_s", "rounds_per_iter",
+                "per_round_s", "transport", "batches_per_iter")
+LATENCY_TIMEOUT_S = 300
+# The injection sweep: a 2x2 mesh of the card at 4096², L in ms.
+BOUND_ARGS = ["--device=cuda", "--devices=4", "--tile=2048", "--latencies-ms", "0", "0.5",
+              "1", "2", "--passes=12", "--trials=5"]
+BOUND_PATHS = ("slab", "overlap", "carrier torus")
+
+
+def exchange_latency_runs(runs, transport, env=None):
+    """``scripts/torch_exchange_latency.py`` for each ``(ranks, mesh y,
+    tile, load)`` of ``runs``, each checked: exit 0, one JSON line with
+    every key, JAX's ``rounds_per_iter`` (one a mesh axis longer than 1),
+    ``transport`` and at least one batch a round.  Returns the lines."""
+    results = []
+    for ranks, mesh_y, tile, load in runs:
+        args = [os.path.join("scripts", "torch_exchange_latency.py"), f"--ranks={ranks}",
+                f"--mesh-y={mesh_y}", f"--tile={tile}", *(["--load"] if load else [])]
+        rc, out, err = run_tool(args, LATENCY_TIMEOUT_S, env)
+        label = " ".join(args[1:])
+        lines = out.strip().splitlines()
+        if rc != 0 or len(lines) != 1:
+            fail(f"torch_exchange_latency {label} exit code {rc}:\n{out[-2000:]}\n{err[-3000:]}")
+        res = json.loads(lines[0])
+        px, py = ranks // mesh_y, mesh_y
+        rounds = (1 if px > 1 else 0) + (1 if py > 1 else 0)
+        if (tuple(res) != LATENCY_KEYS or res["rounds_per_iter"] != rounds
+                or res["transport"] != transport
+                or res["batches_per_iter"] < res["rounds_per_iter"]):
+            fail(f"torch_exchange_latency {label}: {res}")
+        per_batch_us = res["exchange_cost_per_iter_s"] / res["batches_per_iter"] * 1e6
+        print(f"[latency] {label}: {res['transport']}, {res['rounds_per_iter']} rounds and"
+              f" {res['batches_per_iter']} batches an iteration, {res['per_round_s'] * 1e6:.2f}"
+              f" us a round, {per_batch_us:.2f} us a batch; {json.dumps(res)}")
+        results.append(res)
+    return results
+
+
+def phase_latency(torch, device, tmp):
+    """The exchange-latency model on the card: ``torch_exchange_latency`` with
+    4 ranks sharing the card over gloo (2x2, 2048² tiles, face-only and
+    ``--load``), then ``torch_latency_bound`` on a 2x2 mesh of the card at
+    4096² with L in {0, 0.5, 1, 2} ms and the model fed the gloo runs'
+    latency a batch.  Fails on a missing key, a ``rounds_per_iter`` off
+    JAX's formula, a depth that is not 2, or a slope outside [depth - 0.5,
+    batches + 1].  Returns the launch counts of the phase (K3, K4 and K5
+    of the injection runs), apart from the paths'."""
+    t0 = time.perf_counter()
+    gloo = exchange_latency_runs(GLOO_LATENCY_RUNS, GLOO, one_card_env())
+    lat_us = [r["exchange_cost_per_iter_s"] / r["batches_per_iter"] * 1e6 for r in gloo]
+    reset_counts()
+    model = [f"{v:.3f}" for v in lat_us if v > 0]
+    rc, out = captured(load_script("torch_latency_bound").main,
+                       [*BOUND_ARGS, *(["--model-latency-us", *model] if model else [])])
+    for line in out.strip().splitlines():
+        print(f"[latency] bound {line}")
+    if rc != 0:
+        fail(f"torch_latency_bound exit code {rc}")
+    for path in BOUND_PATHS:
+        m = re.search(rf"^{path}: slope dT_pass/dL = (\S+); injected sleeps a pass (\S+);"
+                      rf" depth (\d+), batches (\d+)$", out, re.M)
+        if m is None:
+            fail(f"torch_latency_bound printed no slope for {path}")
+        slope, depth, batches = float(m.group(1)), int(m.group(3)), int(m.group(4))
+        if depth != 2 or not depth - 0.5 <= slope <= batches + 1:
+            fail(f"torch_latency_bound {path}: slope {slope} outside [depth - 0.5, batches"
+                 f" + 1] = [{depth - 0.5}, {batches + 1}], or depth {depth} != 2")
+    if model and "eff = " not in out:
+        fail("torch_latency_bound printed no eff(L) rows")
+    counts = read_counts()
+    print(f"[latency] launches in this phase: {counts}; {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def phase_latency_nccl(torch):
+    """With four or more cards, NCCL_LATENCY_RUNS (one rank a card, 2 ranks on
+    1x2 and 4 on 2x2, 4096² tiles, face-only and ``--load``); with fewer,
+    a line that they need 4."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 4:
+        print(f"[latency] {n_cards} card(s): the NCCL latency runs need 4")
+        return []
+    return exchange_latency_runs(NCCL_LATENCY_RUNS, "nccl")
 
 
 def events_ms(torch, device, fn, reps):
@@ -1551,7 +1654,7 @@ def multiprocess_only(torch, device, nccl_only) -> int:
     """``python3 chip_smoke.py --multiprocess-only``: phase 7's three
     references and the multi-process phase alone, then the NCCL runs (on
     four cards); ``--nccl-only``: the NCCL runs and their single-process
-    references alone.  Ends with a JSON line of the launches and
+    references alone, then the NCCL exchange-latency runs.  Ends with a JSON line of the launches and
     throughput lines, not the ``ok`` line of a full run."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -1565,6 +1668,8 @@ def multiprocess_only(torch, device, nccl_only) -> int:
                                                 kernel, tmp)[2]
             launches, rates = phase_multiprocess(torch, device, tmp, refs)
         nccl_launches, nccl_rates = phase_nccl(torch, tmp)
+        if nccl_only:
+            phase_latency_nccl(torch)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"multiprocess": {
@@ -1592,7 +1697,8 @@ def main() -> int:
     phase_build()
     if sys.argv[1:] in (["--multiprocess-only"], ["--nccl-only"]):
         return multiprocess_only(torch, device, sys.argv[1] == "--nccl-only")
-    for flag, phase in (("--tools-only", phase_tools), ("--study-only", phase_study)):
+    for flag, phase in (("--tools-only", phase_tools), ("--study-only", phase_study),
+                        ("--latency-only", phase_latency)):
         if sys.argv[1:] == [flag]:
             tmp = tempfile.mkdtemp(prefix="chip_smoke_")
             try:
@@ -1640,6 +1746,9 @@ def main() -> int:
         tools = phase_tools(torch, device, tmp)
         for n, count in phase_study(torch, device, tmp).items():
             tools[n] += count
+        for n, count in phase_latency(torch, device, tmp).items():
+            tools[n] += count
+        phase_latency_nccl(torch)
         k1_times = phase_timing(torch, device)
         tile_times, _, bounds, library = phase_tile_timing(torch, device)
         phase_profile(torch, device, tmp, f"bench_{BENCH_GRID} single device",
