@@ -18,7 +18,13 @@ Phases, each of which raises on failure (nothing is caught):
    read back, and a final field that agrees with the plain per-step path
    run on the same card;
 5. the time of one K1 pass (from a CUDA graph replay) and of its plain
-   version at 4096², in f32, bf16 and f64;
+   version at 4096², in f32, bf16 and f64; then the headline bench,
+   ``python3 bench_torch.py`` at its defaults in its own process
+   (``phase_bench``): one stdout line with ``bench.py``'s keys and metric,
+   its value within 0.85-1.10x of K1's f32 rate just read, ``vs_baseline``
+   the value over the card's one-step 8 B/point line, the roofline share
+   and the pass-schedule share on stderr each at most 1, and K1 launched
+   (1 + 3 x 600) x 13 times;
 6. K2, K3 and K4 against their plain versions on the card, over tile
    shapes (a 2048² tile, the new shapes of phase 3 and K3's 8-column and
    8-row band regions included), BC classes, dtypes, steps per pass and
@@ -88,7 +94,8 @@ The second line before the last is a JSON summary of the kernels: each
 kernel's ``launches`` sum the runs of phases 4, 7 and 8 (the paths' own
 runs, the multi-process ranks' included), and its ``tools_launches`` count
 phase 9's runs in this process (the study tools' and the latency
-injection's among them) apart from them; the script fails if either is 0.  Then the card's name and power
+injection's among them) and K1's in ``bench_torch.py`` (from its stderr)
+apart from them; the script fails if either is 0.  Then the card's name and power
 limit from nvidia-smi; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 repository beside it, the script exits non-zero and prints no result.
 
@@ -100,7 +107,9 @@ with their single-process references and the NCCL exchange-latency runs
 (it needs four cards);
 ``python3 chip_smoke.py --tools-only`` runs phases 1, 2 and 9's tools;
 ``python3 chip_smoke.py --study-only`` phases 1, 2 and ``phase_study``;
-``python3 chip_smoke.py --latency-only`` phases 1, 2 and ``phase_latency``.
+``python3 chip_smoke.py --latency-only`` phases 1, 2 and ``phase_latency``;
+``python3 chip_smoke.py --bench-only`` phases 1, 2, K1's f32 timing of
+phase 5 and ``phase_bench``.
 """
 
 from __future__ import annotations
@@ -180,13 +189,9 @@ CARRIER_RUNS = (
 # Carrier tiles of at most this many cells are checked under every BC
 # class besides their run's own.
 SMALL_TILE = 1 << 19
-# The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): device
-# memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s.  bf16 is
-# storage only here: its sub-steps run in float32.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-F64_FLOP_PER_S = 34e12  # float64 outside the tensor cores (same data sheet)
-FLOPS_PER_CELL_STEP = 9  # five products, four sums
+# The card's published peaks and the stencil's operations a cell and step
+# are climate_sim_tpu_torch.benchproto's (DEVICE_PEAKS, FLOPS_PER_POINT_STEP);
+# a card missing there fails the bounds.
 
 
 def fail(msg: str) -> None:
@@ -404,12 +409,13 @@ def phase_main_path(torch, device, label, cfg_path, extra, tmp):
     return launches
 
 
-def phase_timing(torch, device):
+def phase_timing(torch, device, dtypes=("float32", "bfloat16", "float64")):
     """Per-pass time of K1 and of its plain version at 4096², k = 8, bench
-    BCs, in f32, bf16 and f64, measured in turns per dtype: plain, K1, K1,
+    BCs, in each of ``dtypes``, measured in turns per dtype: plain, K1, K1,
     plain (K1 by CUDA graph replay, the plain version, which synchronises
     with the host, by events).  Returns {dtype: (K1 ms, plain ms,
     bound)}."""
+    from climate_sim_tpu_torch.benchproto import FLOPS_PER_POINT_STEP
     from climate_sim_tpu_torch.ops import cuda_stencil as cs
 
     nx = ny = BENCH_GRID
@@ -418,8 +424,8 @@ def phase_timing(torch, device):
     k = 8
     pts = nx * ny * k
     out = {}
-    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16),
-                        ("float64", torch.float64)):
+    for name in dtypes:
+        dtype = getattr(torch, name)
         u = base.to(dtype)
         ms = in_turns(torch, device,
                       {"K1": lambda: cs.multistep_kernel_step(u, cfg, cfg.dt, k),
@@ -427,8 +433,7 @@ def phase_timing(torch, device):
                       ("plain", "K1", "K1", "plain"), {"K1": 60, "plain": 5},
                       graphed=("K1",))
         k_ms, p_ms = sum(ms["K1"]) / 2, sum(ms["plain"]) / 2
-        b = bound(2 * nbytes(u), FLOPS_PER_CELL_STEP * pts,
-                  F64_FLOP_PER_S if dtype == torch.float64 else F32_FLOP_PER_S)
+        b = bound(2 * nbytes(u), FLOPS_PER_POINT_STEP * pts, dtype)
         out[name] = (k_ms, p_ms, b)
         print(f"[timing] {nx}x{ny} {name}, k={k} steps per pass, bench BCs:"
               f" K1 {' / '.join(f'{t:.4f}' for t in ms['K1'])} ms per pass, plain"
@@ -436,6 +441,72 @@ def phase_timing(torch, device):
               f" K1 {pts / (k_ms * 1e6):.1f} Gpoint/s, plain {pts / (p_ms * 1e6):.1f};"
               f" bound {b[0]:.4f} ms ({b[1]}), {b[0] / k_ms:.1%} of it reached")
     return out
+
+
+BENCH_TIMEOUT_S = 300
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]
+BENCH_METRIC = "grid_points_per_s_per_chip_4096sq_diffadv"
+# The warm-up chunk and 3 trials of 600 chunks, 13 K1 passes a 100-step
+# chunk at 4096² (12 of 8 steps and one of 4).
+BENCH_K1_LAUNCHES = (1 + 3 * 600) * 13
+# The bench's chained chunks against phase 5's graph-replayed k = 8 pass:
+# the chunk's 4-step pass and the host's enqueue may move it either way.
+BENCH_RATE_BAND = (0.85, 1.10)
+
+
+def phase_bench(torch, device, k1_ms):
+    """``python3 bench_torch.py`` at its defaults, in its own process:
+    exit 0, one stdout line with ``bench.py``'s keys and metric, ``value``
+    within BENCH_RATE_BAND of K1's f32 rate from phase 5 (``k1_ms`` a k = 8
+    pass at 4096²), ``vs_baseline`` the value over the card's one-step
+    8 B/point line, the roofline and pass-schedule shares on stderr each in
+    (0, 1], and K1 launched BENCH_K1_LAUNCHES times.  Returns those
+    launches by kernel (tools' launches: the bench is not the paths'
+    run)."""
+    from climate_sim_tpu_torch.benchproto import peaks
+
+    t0 = time.perf_counter()
+    rc, out, err = run_tool(["bench_torch.py"], timeout=BENCH_TIMEOUT_S)
+    for line in err.splitlines():
+        print(f"[bench] stderr: {line}")
+    if rc != 0:
+        fail(f"bench_torch.py exited {rc}: {err[-2000:]}")
+    lines = out.splitlines()
+    if len(lines) != 1:
+        fail(f"bench_torch.py printed {len(lines)} stdout lines, not 1: {out[-2000:]}")
+    result = json.loads(lines[0])
+    print(f"[bench] stdout: {json.dumps(result)}")
+    if list(result) != BENCH_KEYS or result["metric"] != BENCH_METRIC \
+            or result["unit"] != "points/s":
+        fail(f"bench_torch.py's line is not bench.py's: {result}")
+    k1_rate = BENCH_GRID * BENCH_GRID * 8 / (k1_ms * 1e-3)
+    ratio = result["value"] / k1_rate
+    lo, hi = BENCH_RATE_BAND
+    if not lo <= ratio <= hi:
+        fail(f"bench value {result['value']} is {ratio:.3f}x K1's {k1_rate:.1f}, outside"
+             f" [{lo}, {hi}]")
+    line_rate = peaks(torch.cuda.get_device_name(device)).bytes_per_s / 8
+    if result["vs_baseline"] != round(result["value"] / line_rate, 4):
+        fail(f"vs_baseline {result['vs_baseline']} is not value / {line_rate:.4g}")
+    shares = {label: float(re.search(rf"{label} share=(\S+)", err).group(1))
+              for label in ("roofline", "pass-schedule")}
+    for label, share in shares.items():
+        if not 0 < share <= 1.0:
+            fail(f"the {label} share {share} is not in (0, 1]")
+    launches = int(re.search(r"^\[bench\] K1 launches=(\d+)$", err, re.M).group(1))
+    if launches != BENCH_K1_LAUNCHES:
+        fail(f"bench_torch.py launched K1 {launches} times, not {BENCH_K1_LAUNCHES}")
+    print(f"[bench] {result['value'] / 1e9:.2f} Gpoint/s, {ratio:.3f}x K1's graph-replayed"
+          f" pass ({k1_rate / 1e9:.1f}); vs_baseline {result['vs_baseline']}; roofline share"
+          f" {shares['roofline']:.4f}, pass-schedule share {shares['pass-schedule']:.4f};"
+          f" K1 launches {launches}; {time.perf_counter() - t0:.1f} s")
+    return {n: launches if n == "K1" else 0 for n in KERNEL_NAMES}
+
+
+def bench_after_timing(torch, device, tmp):
+    """``--bench-only``: phase 5's K1 timing in f32, the rate the bench is
+    held to, then :func:`phase_bench`."""
+    return phase_bench(torch, device, phase_timing(torch, device, ("float32",))["float32"][0])
 
 
 def counters():
@@ -1453,13 +1524,18 @@ def graph_ms(torch, device, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
-    """(least ms the card could take, what sets it): the bytes the function
+def bound(nbytes, flops, dtype=None):
+    """(least ms cuda:0 could take, what sets it): the bytes the function
     must move (each input read once, each output written once) over the
-    memory rate, or its operations over the peak rate of their type."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flop_rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    memory rate, or its operations over the peak rate of ``dtype``'s
+    arithmetic (float32 unless given; bf16 computes in float32), from
+    ``benchproto.bound_s`` and the card's published peaks."""
+    import torch
+
+    from climate_sim_tpu_torch.benchproto import bound_s
+
+    s, by = bound_s(nbytes, flops, dtype or torch.float32, torch.cuda.get_device_name(0))
+    return s * 1e3, by
 
 
 def nbytes(*tensors):
@@ -1488,6 +1564,7 @@ def phase_tile_timing(torch, device):
     sizes, 100-step chunks, true points only; each measured in turns."""
     import torch.nn.functional as F
 
+    from climate_sim_tpu_torch.benchproto import FLOPS_PER_POINT_STEP
     from climate_sim_tpu_torch.ops import cuda_sharded as sh
     from climate_sim_tpu_torch.ops.cuda_stencil import _stencil_weights, build_multistep_advance
     from climate_sim_tpu_torch.parallel import halo
@@ -1514,10 +1591,10 @@ def phase_tile_timing(torch, device):
     }
     cells = m * m
     bounds = {
-        "K2": bound(nbytes(up) + 4 * cells, FLOPS_PER_CELL_STEP * cells),
-        "K3": bound(nbytes(w) + 4 * cells, FLOPS_PER_CELL_STEP * k * cells),
-        "K4": bound(nbytes(tile, xh, yh, tile), FLOPS_PER_CELL_STEP * k * cells),
-        "K5": bound(nbytes(ctile, cxh, cyh, ctile), FLOPS_PER_CELL_STEP * k * cy * cx),
+        "K2": bound(nbytes(up) + 4 * cells, FLOPS_PER_POINT_STEP * cells),
+        "K3": bound(nbytes(w) + 4 * cells, FLOPS_PER_POINT_STEP * k * cells),
+        "K4": bound(nbytes(tile, xh, yh, tile), FLOPS_PER_POINT_STEP * k * cells),
+        "K5": bound(nbytes(ctile, cxh, cyh, ctile), FLOPS_PER_POINT_STEP * k * cy * cx),
     }
     # Kernel windows of ~8-15 ms of device time each, so that the card's
     # clocks settle within a window; kernels (and conv2d) by CUDA graph
@@ -1698,7 +1775,8 @@ def main() -> int:
     if sys.argv[1:] in (["--multiprocess-only"], ["--nccl-only"]):
         return multiprocess_only(torch, device, sys.argv[1] == "--nccl-only")
     for flag, phase in (("--tools-only", phase_tools), ("--study-only", phase_study),
-                        ("--latency-only", phase_latency)):
+                        ("--latency-only", phase_latency),
+                        ("--bench-only", bench_after_timing)):
         if sys.argv[1:] == [flag]:
             tmp = tempfile.mkdtemp(prefix="chip_smoke_")
             try:
@@ -1750,6 +1828,8 @@ def main() -> int:
             tools[n] += count
         phase_latency_nccl(torch)
         k1_times = phase_timing(torch, device)
+        for n, count in phase_bench(torch, device, k1_times["float32"][0]).items():
+            tools[n] += count
         tile_times, _, bounds, library = phase_tile_timing(torch, device)
         phase_profile(torch, device, tmp, f"bench_{BENCH_GRID} single device",
                       ["--kernel=pallas"], 1, "K1")

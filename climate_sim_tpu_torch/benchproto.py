@@ -10,14 +10,83 @@ timed region, so :func:`warm_up` runs one chunk and synchronises, which
 builds and loads the kernel library on its first use; a card is timed with
 CUDA events around ``reps`` chained chunks, the CPU with the host clock;
 the best of ``trials`` is kept.
+
+The card's published peaks (:data:`DEVICE_PEAKS`), the least time a
+piece of work could take on it (:func:`bound_s`) and the work of a chunk
+(:func:`chunk_work`) are here too, so that ``bench_torch.py`` and
+``chip_smoke.py`` read one table.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, List, Tuple
+from typing import Callable, List, NamedTuple, Tuple
 
 import torch
+
+
+class Peaks(NamedTuple):
+    """A card's published peak rates."""
+
+    bytes_per_s: float  # device memory
+    f32_flop_per_s: float  # float32 outside the tensor cores
+    f64_flop_per_s: float  # float64 outside the tensor cores
+
+
+# Published peaks by ``torch.cuda.get_device_name()``; a card missing here
+# has no figures, never another card's.
+DEVICE_PEAKS = {
+    # NVIDIA H100 SXM data sheet, at its 700 W limit: HBM3 3.35 TB/s,
+    # FP32 67 TFLOP/s, FP64 34 TFLOP/s.
+    "NVIDIA H100 80GB HBM3": Peaks(3.35e12, 67e12, 34e12),
+}
+
+FLOPS_PER_POINT_STEP = 9  # the stencil's five products and four sums
+
+
+def peaks(card: str) -> Peaks:
+    """The published peaks of the card named ``card`` (as
+    ``torch.cuda.get_device_name`` gives it).  Raises ``ValueError``
+    naming the card when the table does not hold it."""
+    if card not in DEVICE_PEAKS:
+        raise ValueError(f"no published peaks for the card {card!r}; known: "
+                         f"{sorted(DEVICE_PEAKS)}")
+    return DEVICE_PEAKS[card]
+
+
+def bound_s(nbytes: float, flops: float, dtype: torch.dtype, card: str) -> Tuple[float, str]:
+    """(least seconds the card named ``card`` could take, what sets it):
+    ``nbytes`` over the memory rate, or ``flops`` over the peak rate of
+    ``dtype``'s arithmetic, whichever is longer.  bfloat16 is storage only
+    (its steps compute in float32), so it takes the float32 rate."""
+    p = peaks(card)
+    t_bytes = nbytes / p.bytes_per_s
+    t_ops = flops / (p.f64_flop_per_s if dtype == torch.float64 else p.f32_flop_per_s)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class ChunkWork(NamedTuple):
+    """The work of one ``chunk``-step program on the global field."""
+
+    field_bytes: int  # one read and one write of the field: all a chunk must move
+    flops: int  # the stencil's operations over every point and step
+    passes: int  # K1 passes of the port's pass schedule
+    pass_bytes: int  # each of those passes reading and writing the field
+
+
+def chunk_work(cfg, chunk: int, dtype: torch.dtype) -> ChunkWork:
+    """The work of one ``chunk``-step program.  The roofline of a chunk is
+    ``bound_s(field_bytes, flops, ...)``: the work the function needs,
+    whatever the code under test does.  ``bound_s(pass_bytes, flops, ...)``
+    is the bound of the K1 pass schedule, which moves with the steps a pass
+    the port chooses, so it is no roofline."""
+    from .ops.cuda_stencil import pass_schedule
+
+    points = cfg.nx * cfg.ny
+    field_bytes = 2 * torch.empty((), dtype=dtype).element_size() * points
+    passes = len(pass_schedule(cfg, chunk))
+    return ChunkWork(field_bytes, FLOPS_PER_POINT_STEP * points * chunk, passes,
+                     passes * field_bytes)
 
 
 def bench_config(nx: int, ny: int, chunk: int):
