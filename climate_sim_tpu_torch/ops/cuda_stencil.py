@@ -54,9 +54,10 @@ class BandGeometry(NamedTuple):
 @functools.lru_cache(maxsize=256)
 def band_geometry(ny: int, nx: int, k: int) -> BandGeometry:
     """The band geometry the kernels run an (ny, nx) output with at pass
-    size k: bands 16k columns wide (so the 2k halo columns cost at most an
-    eighth), at least 128 and at most MAX_BAND, narrowed to the multiple
-    of 32 that holds the whole width with its halo when that is less;
+    size k: bands 16k columns wide rounded up to a multiple of 32 (so the
+    2k halo columns cost at most an eighth; the core takes whole warps),
+    at least 128 and at most MAX_BAND, narrowed to the multiple of 32 that
+    holds the whole width with its halo when that is less;
     segments of 8k rows (at least 16), at most ny.  On the H100 these
     beat wider bands and taller segments for k = 1 and 8 (more resident
     blocks per SM hide the barrier and load latency of each row).  A
@@ -69,7 +70,7 @@ def band_geometry(ny: int, nx: int, k: int) -> BandGeometry:
     def blocks(width, rows):
         return -(-nx // (width - 2 * k)) * -(-ny // rows)
 
-    width = min(max(128, 16 * k), MAX_BAND, -(-(nx + 2 * k) // 32) * 32)
+    width = min(-(-max(128, 16 * k) // 32) * 32, MAX_BAND, -(-(nx + 2 * k) // 32) * 32)
     rows = min(ny, max(16, 8 * k))
     while blocks(width, rows) < MIN_BLOCKS:
         if rows > 8:

@@ -5,14 +5,19 @@ The port's counterpart of ``scripts/coverage_check.py``: ``sys.monitoring``
 (PEP 669, Python 3.12+) records the lines executed under
 ``climate_sim_tpu_torch/`` while the port's tests (``tests/test_torch_*.py``
 by default) run in this process; each module's executable lines come from
-its code objects (``co_lines``).  Lines run only in a subprocess (the
-multi-process tests' ranks, the tools' fresh-process checks) are not seen.
+its code objects (``co_lines``).  Python processes the tests start (the
+multi-process tests' ranks, the tools' fresh-process checks) are followed
+as ``coverage.py`` follows them with ``COVERAGE_PROCESS_START``: a
+``sitecustomize`` on their ``PYTHONPATH`` records their lines the same way
+and writes them out when the process exits normally; a process that is
+killed, or that leaves by ``os._exit``, adds nothing.
 
 The port's tests compare it with the JAX package, so this gate needs JAX
 and runs on a CPU machine with the test suite's environment; it is not
-meant for the card.  Neither are the lines it reports as missed in the
-CUDA launch branches of ``ops/cuda_*.py`` and ``ops/_build.py``: those run
-only on a card, in ``chip_smoke.py``.
+meant for the card.  Lines that only a card runs (CUDA streams, events
+and devices in ``benchproto.py``, ``runtime/driver.py`` and
+``runtime/distributed.py``) are reported as missed; ``chip_smoke.py`` runs
+them.
 
 Usage:
     JAX_PLATFORMS=cpu python scripts/torch_coverage_check.py [--show-missing]
@@ -26,8 +31,11 @@ from __future__ import annotations
 
 import argparse
 import glob
+import json
 import os
 import sys
+import tempfile
+import textwrap
 from collections import defaultdict
 from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
@@ -38,6 +46,43 @@ TOOL_ID = sys.monitoring.COVERAGE_ID
 
 # (path shown, executable lines, lines hit, percent, missed lines)
 Row = Tuple[str, int, int, float, List[int]]
+
+# The children's recorder: started from a ``sitecustomize`` that the gate
+# puts first on PYTHONPATH, told where to write and what to record by two
+# environment variables.  It takes tool id 3 (free for any tool), so that a
+# gate run in a followed child still gets COVERAGE_ID.
+CHILD_TOOL_ID = 3
+CHILD_DIR_ENV = "TORCH_COVERAGE_CHILD_DIR"
+CHILD_TARGETS_ENV = "TORCH_COVERAGE_TARGETS"
+SITECUSTOMIZE = textwrap.dedent(f"""\
+    import os, sys
+
+    def _record_lines():
+        out = os.environ.get({CHILD_DIR_ENV!r})
+        targets = tuple(t for t in os.environ.get({CHILD_TARGETS_ENV!r}, "").split(os.pathsep) if t)
+        if not out or not targets:
+            return
+        import atexit, json
+        mon, executed = sys.monitoring, {{}}
+
+        def on_line(code, lineno):
+            if code.co_filename.startswith(targets):
+                executed.setdefault(code.co_filename, set()).add(lineno)
+            return mon.DISABLE
+
+        def dump():
+            mon.set_events({CHILD_TOOL_ID}, 0)
+            path = os.path.join(out, f"{{os.getpid()}}.json")
+            with open(path, "w") as f:
+                json.dump({{k: sorted(v) for k, v in executed.items()}}, f)
+
+        mon.use_tool_id({CHILD_TOOL_ID}, "torch_coverage_check child")
+        mon.register_callback({CHILD_TOOL_ID}, mon.events.LINE, on_line)
+        mon.set_events({CHILD_TOOL_ID}, mon.events.LINE)
+        atexit.register(dump)
+
+    _record_lines()
+""")
 
 
 def executable_lines(path: str) -> Set[int]:
@@ -56,10 +101,37 @@ def executable_lines(path: str) -> Set[int]:
     return lines
 
 
+def follow_children(targets: Sequence[str], work: str) -> str:
+    """Make the Python processes started from now on record their lines
+    under ``work``; returns the directory they write to."""
+    site, out = os.path.join(work, "site"), os.path.join(work, "lines")
+    os.makedirs(site)
+    os.makedirs(out)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(SITECUSTOMIZE)
+    os.environ[CHILD_DIR_ENV] = out
+    os.environ[CHILD_TARGETS_ENV] = os.pathsep.join(targets)
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (site, os.environ.get("PYTHONPATH")) if p)
+    return out
+
+
+def merge_children(out: str, executed: Dict[str, Set[int]]) -> int:
+    """Add the children's recorded lines to ``executed``; returns how many
+    children wrote theirs."""
+    files = glob.glob(os.path.join(out, "*.json"))
+    for path in files:
+        with open(path) as f:
+            for fn, lines in json.load(f).items():
+                executed[fn].update(lines)
+    return len(files)
+
+
 def record(pytest_args: Sequence[str], targets: Sequence[str]
            ) -> Tuple[int, Dict[str, Set[int]]]:
-    """Run pytest in this process with line events on; returns (pytest's
-    exit code, {file under a target: lines executed})."""
+    """Run pytest in this process with line events on, following the
+    Python processes it starts; returns (pytest's exit code, {file under a
+    target: lines executed})."""
     targets = tuple(os.path.join(os.path.abspath(t), "") for t in targets)
     executed: Dict[str, Set[int]] = defaultdict(set)
 
@@ -69,16 +141,26 @@ def record(pytest_args: Sequence[str], targets: Sequence[str]
         # One event per code location is enough.
         return sys.monitoring.DISABLE
 
-    sys.monitoring.use_tool_id(TOOL_ID, "torch_coverage_check")
-    sys.monitoring.register_callback(TOOL_ID, sys.monitoring.events.LINE, on_line)
-    sys.monitoring.set_events(TOOL_ID, sys.monitoring.events.LINE)
-    try:
-        import pytest
+    saved = {k: os.environ.get(k) for k in (CHILD_DIR_ENV, CHILD_TARGETS_ENV, "PYTHONPATH")}
+    with tempfile.TemporaryDirectory(prefix="torch_coverage_") as work:
+        out = follow_children(targets, work)
+        sys.monitoring.use_tool_id(TOOL_ID, "torch_coverage_check")
+        sys.monitoring.register_callback(TOOL_ID, sys.monitoring.events.LINE, on_line)
+        sys.monitoring.set_events(TOOL_ID, sys.monitoring.events.LINE)
+        try:
+            import pytest
 
-        rc = int(pytest.main(list(pytest_args)))
-    finally:
-        sys.monitoring.set_events(TOOL_ID, 0)
-        sys.monitoring.free_tool_id(TOOL_ID)
+            rc = int(pytest.main(list(pytest_args)))
+        finally:
+            sys.monitoring.set_events(TOOL_ID, 0)
+            sys.monitoring.free_tool_id(TOOL_ID)
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        children = merge_children(out, executed)
+    print(f"\n{children} child processes followed")
     return rc, executed
 
 

@@ -276,7 +276,7 @@ def test_wrapper_checks_and_cpu_launch_count():
         tcs.multistep_kernel_step(u.to("meta"), tcfg, 0.1, 1)
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 8, 16, 31, 32])
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 11, 16, 31, 32])
 @pytest.mark.parametrize("shape", [(4096, 4096), (2048, 2048), (2009, 2001), (300, 40),
                                    (40, 300), (8, 2048), (2048, 8), (64, 128), (1, 1),
                                    (333, 241), (5000, 3)])
@@ -289,7 +289,7 @@ def test_band_geometry_covers_every_output_once(shape, k):
     ny, nx = shape
     g = tcs.band_geometry(ny, nx, k)
     assert g.width % 32 == 0 and 2 * k < g.width <= tcs.MAX_BAND
-    assert g.width <= max(128, 16 * k) and g.width < nx + 2 * k + 32
+    assert g.width <= -(-max(128, 16 * k) // 32) * 32 and g.width < nx + 2 * k + 32
     assert g.rows == ny or (g.rows % 8 == 0 and g.rows <= max(16, 8 * k))
     out_w = g.width - 2 * k
     assert (g.bands - 1) * out_w < nx <= g.bands * out_w
