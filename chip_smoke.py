@@ -44,16 +44,26 @@ Phases, each of which raises on failure (nothing is caught):
    ``halo_overlap: true`` (K3), dev.yaml at 512² on 1x4 and 4x1, and the
    carrier path (K5) on grids the mesh does not divide: bench_4096's BCs
    at 4001² on 2x2 (y torus staging), dev.yaml at 509x511 on 1x4 and 4x1
-   (one-sided y staging), all-periodic at 1001x999 on 2x2; each checked
-   for the timing and mesh lines, launch counts equal to the pass schedule
-   times the tiles with every other kernel at 0, snapshots that read back,
-   and a final field that agrees with the single-device K1 run on the
-   same card;
+   (one-sided y staging), all-periodic at 1001x999 on 2x2; each replaying
+   its chunks as CUDA graphs (the banner says so) and checked for the
+   timing and mesh lines, launch counts equal to the pass schedule times
+   the tiles with every other kernel at 0, snapshots that read back, and
+   a final field that agrees with the single-device K1 run on the same
+   card; the bench_4096 slab run and the 4001² carrier run again under
+   ``disable_graphs()``, their files byte-identical to the graphed runs'
+   (``phase_eager_files``);
 8. the per-step sharded path (K2) on a 2x2 mesh at 4096², 100 steps,
    held against the slab path and against K1; the per-step path on
    remainder tiles at 4001² on 2x2 (torch ops, and K2), 1000 steps,
-   against K1; then the multi-process driver (``--distributed``, one
-   process per rank, gloo between ranks that share the card): phase 7's
+   against K1; then ``phase_graphs``: each captured mesh path against its
+   eager run on 2x2 of the card (slab, overlap and per-step K2 at 4096²,
+   the carrier at 4001²; f32 on all, bf16 and f64 on slab and carrier;
+   mixed and torus BCs; chunks of 1, 7, 100 and 256 steps), the tiles
+   bit-identical and a replay's launches and ``mesh.copies`` equal to the
+   eager chunk's, with each capture's seconds and memory, then eager and
+   graphed 100-step chunks timed in turns; then the multi-process driver
+   (``--distributed``, one process per rank, gloo between ranks that
+   share the card, whose chunks stay eager by the capture rule): phase 7's
    bench_4096 slab and 4001² carrier runs on 4 ranks, its overlap run on
    2 ranks of 2 tiles, and a 4-rank restart from the slab run's file, each
    file byte-identical to its single-process counterpart, the launches
@@ -62,7 +72,9 @@ Phases, each of which raises on failure (nothing is caught):
    carrier and overlap runs, bench_4096's per-step path with torch ops and
    the per-step path with K2 on the remainder tiles of a 2^21 x 3 grid,
    each file byte-identical to the single-process mesh over the four
-   cards, its rate beside that mesh's);
+   cards, its rate beside that mesh's; the ranks replay captured chunks,
+   and the slab, carrier and per-step torch-ops runs also run eager in
+   turns with them);
 9. the port's tools, each through its entry point: an IC file from
    ``scripts/torch_generate_ic.py`` at 4096² run through the CLI and held
    to the preset run; ``scripts/torch_hw_conformance.py`` (every path x
@@ -116,7 +128,10 @@ with their single-process references and the NCCL exchange-latency runs
 ``python3 chip_smoke.py --latency-only`` phases 1, 2 and ``phase_latency``;
 ``python3 chip_smoke.py --bench-only`` phases 1, 2, K1's f32 timing of
 phase 5 and ``phase_bench``;
-``python3 chip_smoke.py --fuzz-only`` phases 1, 2 and ``phase_fuzz``.
+``python3 chip_smoke.py --fuzz-only`` phases 1, 2 and ``phase_fuzz``;
+``python3 chip_smoke.py --graphs-only`` phases 1, 2, ``phase_graphs`` and
+phase 7's bench_4096 slab and 4001² carrier runs, each also under
+``disable_graphs()``.
 ``--fuzz-seed N`` (with any of these, or alone) draws the fuzz from N
 instead of FUZZ_SEED.
 """
@@ -952,8 +967,8 @@ def phase_sharded_run(torch, device, label, cfg_path, extra, mesh_xy, kernel, tm
     if f"  mesh: x={px} y={py} ({n} devices)" not in out.splitlines():
         fail(f"{label}: no mesh line for x={px} y={py}")
     path = {"K3": "overlap, K3", "K4": "slab, K4", "K5": "carrier, K5"}[kernel]
-    if f"path: {path} CUDA kernel" not in out:
-        fail(f"{label}: the run did not take the {path} CUDA path")
+    if f"path: {path} CUDA kernel, chunks as CUDA graphs" not in out:
+        fail(f"{label}: the run did not take the {path} CUDA path with captured chunks")
     if (kernel == "K5") != ("running the CARRIER path" in out):
         fail(f"{label}: the [info] CARRIER line is {'missing' if kernel == 'K5' else 'wrong'}")
     if res.mesh_shape != (py, px):
@@ -1090,30 +1105,283 @@ def phase_padded_per_step(torch, device):
     return launches
 
 
+# phase_graphs: each captured mesh path against its eager run on 2x2 of
+# the card: (path, grid side, dtypes); under the mixed (bench_4096's) and
+# torus BCs, at each chunk length.
+GRAPH_PATHS = (
+    ("slab", BENCH_GRID, ("float32", "bfloat16", "float64")),
+    ("overlap", BENCH_GRID, ("float32",)),
+    ("per-step K2", BENCH_GRID, ("float32",)),
+    ("carrier", CARRIER_GRID, ("float32", "bfloat16", "float64")),
+)
+GRAPH_BCS = ("mixed", "torus")
+GRAPH_CHUNKS = (1, 7, 100, 256)
+GRAPH_TIMED_CHUNK = 100
+
+
+def graph_case(torch, path, n, bc, device):
+    """(advance, mesh) of a phase_graphs path on 2x2 of the card at n² with
+    the ``bc`` class, the kernel named."""
+    import dataclasses
+
+    from climate_sim_tpu_torch.config import BCConfig, BCType
+    from climate_sim_tpu_torch.ops.step import make_interior_step
+    from climate_sim_tpu_torch.parallel import halo
+    from climate_sim_tpu_torch.parallel.mesh import make_mesh
+
+    cfg, dt = bench_config(n)
+    cfg = dataclasses.replace(cfg, dt=dt)
+    if bc == "torus":
+        cfg.bc = BCConfig(*(BCType.PERIODIC,) * 4)
+    mesh = make_mesh(2, 2, [device] * 4)
+    adv = {"slab": halo.build_sharded_multistep_advance,
+           "overlap": halo.build_sharded_overlap_advance,
+           "carrier": halo.build_carrier_slab_advance,
+           "per-step K2": lambda c, m, d: halo.build_sharded_advance(
+               c, m, d, make_interior_step(c, d))}[path](cfg, mesh, dt)
+    if adv is None or adv.eager_why is not None:
+        fail(f"graphs: {path} {bc} at {n}² on 2x2 of the card is not captured"
+             f" ({adv and adv.eager_why})")
+    return adv, mesh
+
+
+def case_tiles(torch, adv, mesh, n, dtype, seed, device):
+    """The tiles (carrier tiles on the carrier path) of an edge-parked
+    field made on the card from ``seed``."""
+    from climate_sim_tpu_torch.parallel.mesh import shard_field
+
+    u = edge_parked(torch, n, n, seed, device).to(getattr(torch, dtype))
+    return adv.embed(u) if hasattr(adv, "embed") else shard_field(u, mesh)
+
+
+def chunk_ms(torch, device, fn, trials=3):
+    """Best ms of ``trials`` calls of ``fn()``, each alone between CUDA
+    events on an idle card (the host's enqueue included)."""
+    best = float("inf")
+    for _ in range(trials):
+        torch.cuda.synchronize(device)
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize(device)
+        best = min(best, start.elapsed_time(stop))
+    return best
+
+
+def same_tiles(torch, label, got, want):
+    """Fail unless the tiles ``got`` equal ``want`` bit for bit."""
+    for y, (grow, wrow) in enumerate(zip(got, want)):
+        for x, (g, w) in enumerate(zip(grow, wrow)):
+            if not torch.equal(g, w):
+                err = float((g.double() - w.double()).abs().max())
+                fail(f"graphs: {label}: tile ({y}, {x}) differs from the"
+                     f" eager chunk's (max abs err {err:.3g})")
+
+
+def traced_kernels(torch, device, run, trace_path):
+    """Kernel events by name in a ``torch.profiler`` trace of one ``run()``,
+    after one more ``run()`` in the profiler's warm-up step (which traces
+    and drops its events, so none of the traced step's is lost to the
+    tracer's start)."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda prof: prof.export_chrome_trace(trace_path)) as prof:
+        for _ in range(2):
+            run()
+            torch.cuda.synchronize(device)
+            prof.step()
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return collections.Counter(ev["name"] for ev in events if ev.get("cat") == "kernel")
+
+
+def phase_graphs(torch, device):
+    """Each captured mesh path against its eager run (``disable_graphs()``)
+    on 2x2 of the card: slab, overlap and per-step (K2) at 4096², the
+    carrier (K5) at 4001²; f32 on every path, bf16 and f64 on slab and
+    carrier; the mixed and torus BCs; chunks of 1, 7, 100 and 256 steps,
+    one advance per dtype, so its chunks share one pool.  Each case: the
+    replayed tiles bit-identical to the eager chunk's, and one replay's
+    launches and ``mesh.copies`` equal to the eager chunk's; the capture
+    (which raises unless the graph's stencil kernel nodes equal the
+    launches its wrappers counted) takes its seconds and adds memory
+    (static input and pool, from ``memory_reserved``), printed.  Once an
+    advance holds all four lengths, each is replayed again in the reverse
+    order and must give the same tiles.  On each path's f32 mixed 100-step
+    chunk, a ``torch.profiler`` trace of one replay must hold as many
+    stencil kernel events as the replay counted launches.  Then eager and
+    graphed 100-step chunks in f32 (mixed BCs) in turns, best of 3 each,
+    with the bare replay (no copy in or out) beside them.  Returns
+    {path: {"eager": ms, "graphed": ms, "replay": ms}}."""
+    import collections
+
+    from climate_sim_tpu_torch.parallel.halo import CHUNK_KERNEL
+    from climate_sim_tpu_torch.runtime import graphs
+
+    t0 = time.perf_counter()
+    cases, traced = 0, {}
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_graph_trace_")
+    for path, n, dtypes in GRAPH_PATHS:
+        for bc in GRAPH_BCS:
+            for di, dtype in enumerate(dtypes):
+                adv, mesh = graph_case(torch, path, n, bc, device)
+                tiles = case_tiles(torch, adv, mesh, n, dtype, 40 + di, device)
+                field = sum(t.numel() * t.element_size() for row in tiles for t in row)
+                wants = {}
+                for chunk in GRAPH_CHUNKS:
+                    label = f"{path} {bc} {n}² {dtype} chunk={chunk}"
+                    reset_counts()
+                    copies0 = collections.Counter(mesh.copies)
+                    with graphs.disable_graphs():
+                        want = wants[chunk] = adv(chunk)(tiles)
+                    torch.cuda.synchronize(device)
+                    eager_counts = read_counts()
+                    eager_copies = mesh.copies - copies0
+                    fn = adv(chunk)
+                    torch.cuda.empty_cache()
+                    held0 = torch.cuda.memory_reserved(device)
+                    t_cap = time.perf_counter()
+                    nodes = fn.capture(tiles).kernel_nodes
+                    torch.cuda.synchronize(device)
+                    cap_s = time.perf_counter() - t_cap
+                    held = torch.cuda.memory_reserved(device) - held0
+                    reset_counts()
+                    copies0 = collections.Counter(mesh.copies)
+                    got = fn(tiles)
+                    torch.cuda.synchronize(device)
+                    got_counts, got_copies = read_counts(), mesh.copies - copies0
+                    if got_counts != eager_counts or got_copies != eager_copies:
+                        fail(f"graphs: {label}: a replay counted {got_counts},"
+                             f" {dict(got_copies)}; the eager chunk {eager_counts},"
+                             f" {dict(eager_copies)}")
+                    same_tiles(torch, label, got, want)
+                    cases += 1
+                    launched = {k: v for k, v in got_counts.items() if v}
+                    stencil_nodes = sum(v for k, v in nodes.items() if CHUNK_KERNEL in k)
+                    trace = ""
+                    if bc == "mixed" and di == 0 and chunk == GRAPH_TIMED_CHUNK:
+                        events = traced_kernels(torch, device, lambda: fn(tiles),
+                                                os.path.join(trace_dir, "trace.json"))
+                        seen = sum(v for k, v in events.items() if CHUNK_KERNEL in k)
+                        if seen != sum(got_counts.values()):
+                            fail(f"graphs: {label}: a traced replay ran {seen} {CHUNK_KERNEL}"
+                                 f" kernels; the replay counted {launched}")
+                        traced[path] = seen
+                        trace = f"; a traced replay ran {seen} {CHUNK_KERNEL} kernels"
+                    print(f"[graphs] {label}: bit-identical to eager; per replay"
+                          f" {launched} launches ({stencil_nodes} {CHUNK_KERNEL} nodes in"
+                          f" the graph{trace}), {sum(got_copies.values())} copies;"
+                          f" capture {cap_s:.3f} s, adds {held / 2**20:.0f} MiB"
+                          f" = {held / field:.2f} fields (static input 1.00)")
+                    del want, got, fn
+                for chunk in reversed(GRAPH_CHUNKS):
+                    same_tiles(torch, f"{path} {bc} {n}² {dtype} chunk={chunk} replayed"
+                               f" after the longer chunks", adv(chunk)(tiles), wants[chunk])
+                del adv, wants, tiles
+                torch.cuda.empty_cache()
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    print(f"[graphs] {cases} cases bit-identical to their eager runs, and again replayed in"
+          f" the reverse order, in {time.perf_counter() - t0:.1f} s; traced replays ran"
+          f" the counted launches: {traced}")
+
+    ms = {}
+    for path, n, _ in GRAPH_PATHS:
+        adv, mesh = graph_case(torch, path, n, "mixed", device)
+        tiles = case_tiles(torch, adv, mesh, n, "float32", 50, device)
+        fn = adv(GRAPH_TIMED_CHUNK)
+        graph = fn.capture(tiles).graph
+
+        def eager():
+            with graphs.disable_graphs():
+                adv(GRAPH_TIMED_CHUNK)(tiles)
+
+        runs = {"eager": eager, "graphed": lambda: fn(tiles),
+                "replay": lambda: graphs.CUDA_GRAPHS.replay(graph)}
+        turns = {name: [] for name in runs}
+        eager()
+        for name in ("eager", "graphed", "replay", "replay", "graphed", "eager"):
+            turns[name].append(chunk_ms(torch, device, runs[name]))
+        ms[path] = {name: min(v) for name, v in turns.items()}
+        pts = n * n * GRAPH_TIMED_CHUNK
+        print(f"[graphs] {path} {n}² f32 on 2x2 of one card, {GRAPH_TIMED_CHUNK}-step chunk,"
+              f" best of 3 in turns: " + "; ".join(
+                  f"{name} {' / '.join(f'{t:.3f}' for t in v)} ms"
+                  f" ({pts / (min(v) * 1e6):.1f} Gpoint/s)" for name, v in turns.items())
+              + f"; graphed/eager {ms[path]['eager'] / ms[path]['graphed']:.2f}x;"
+              f" copy in and out {ms[path]['graphed'] - ms[path]['replay']:.3f} ms"
+              f" ({1 - ms[path]['replay'] / ms[path]['graphed']:.1%} of the graphed chunk)")
+        del adv, fn, graph, tiles
+        torch.cuda.empty_cache()
+    return ms
+
+
+def phase_eager_files(torch, device, tmp, files):
+    """Phase 7's bench_4096 slab run and its 4001² carrier run again under
+    ``disable_graphs()``: the banner says eager, and each file is
+    byte-identical to the graphed run's (``files[label]``)."""
+    from climate_sim_tpu_torch.config import merged_config
+    from climate_sim_tpu_torch.runtime import driver, graphs
+
+    for label, cfg_path, extra in (("bench_4096_2x2_slab", BENCH_CFG, BENCH_STEPS),
+                                   CARRIER_RUNS[0][:3]):
+        args = [*extra, "--mesh.x=2", "--mesh.y=2", "--kernel=pallas", "--write_final=true",
+                f"--output.dir={os.path.join(tmp, label + '_eager')}"]
+        cfg = merged_config(cfg_path, args)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), graphs.disable_graphs():
+            driver.run_simulation(cfg, [device] * 4)
+        out = buf.getvalue()
+        if "eager chunks (graphs disabled)" not in out:
+            fail(f"{label} under disable_graphs(): the banner does not say eager")
+        same_file(f"{label} eager", cfg.resolved_output_path(), files[label])
+        rate = re.search(r"^throughput: (.*)$", out, re.M).group(1)
+        print(f"[graphs] {label} under disable_graphs(): file byte-identical to the"
+              f" graphed run's; eager throughput: {rate}")
+
+
 # A rank of a multi-process run: the port's CLI (one tile, the rank's own
-# card), or run_simulation on ``tiles`` tiles of that card; prints the
-# rank's launch counts, which start at 0 in the fresh process.
+# card), or run_simulation on ``tiles`` tiles of that card, with its chunks
+# eager under disable_graphs() when the sixth argument says "eager"; prints
+# the rank's launch counts, which start at 0 in the fresh process.
 RANK_WORKER = """
-import json, sys
+import contextlib, json, sys
 rank, port, nproc, tiles = (int(a) for a in sys.argv[1:5])
 sys.path.insert(0, {here!r})
 import chip_smoke
-from climate_sim_tpu_torch.runtime import cli, distributed, driver
-argv = ["--distributed=127.0.0.1:%d,%d,%d" % (port, nproc, rank), *sys.argv[5:]]
+from climate_sim_tpu_torch.runtime import graphs
+argv = ["--distributed=127.0.0.1:%d,%d,%d" % (port, nproc, rank), *sys.argv[6:]]
 chip_smoke.reset_counts()
-if tiles == 1:
-    rc = cli.main(argv)
-else:
+eager = graphs.disable_graphs() if sys.argv[5] == "eager" else contextlib.nullcontext()
+with eager:
+    rc = chip_smoke.rank_main(argv, tiles, rank)
+print("RANK_COUNTS " + json.dumps(chip_smoke.read_counts()), flush=True)
+sys.exit(rc)
+""".format(here=HERE)
+
+
+def rank_main(argv, tiles, rank):
+    """RANK_WORKER's run: the CLI on one tile, else run_simulation on
+    ``tiles`` tiles of the rank's card; its exit code."""
+    from climate_sim_tpu_torch.runtime import cli, distributed, driver
+
+    if tiles == 1:
+        return cli.main(argv)
     import torch
+
     from climate_sim_tpu_torch.config import extract_config_path, merged_config
+
     dev = torch.device("cuda", rank % torch.cuda.device_count())
     torch.cuda.set_device(dev)
     driver.run_simulation(merged_config(extract_config_path(argv), argv), [dev] * tiles)
     distributed.shutdown()
-    rc = 0
-print("RANK_COUNTS " + json.dumps(chip_smoke.read_counts()), flush=True)
-sys.exit(rc)
-""".format(here=HERE)
+    return 0
+
+
 RANK_TIMEOUT_S = 300
 # The multi-process runs: (label, config, overrides, ranks, tiles per rank,
 # kernel).  Their overrides are those of phase 7's run of the same config
@@ -1143,6 +1411,11 @@ NCCL_RUNS = (
 )
 
 
+# The NCCL runs also timed eager against captured, in turns.
+NCCL_EAGER_TURNS = ("bench_4096_4_ranks_slab", f"bench_{CARRIER_GRID}_4_ranks_carrier",
+                    "bench_4096_perstep_torch_ops")
+
+
 def free_port():
     import socket
 
@@ -1158,14 +1431,15 @@ def one_card_env():
     return {"CUDA_VISIBLE_DEVICES": visible.split(",")[0] if visible else "0"}
 
 
-def run_ranks(nproc, tiles, args, env=None, timeout=RANK_TIMEOUT_S):
+def run_ranks(nproc, tiles, args, env=None, timeout=RANK_TIMEOUT_S, eager=False):
     """``nproc`` ranks of RANK_WORKER on 127.0.0.1, all started together,
-    with ``env`` added to this process's environment; returns [(exit code,
-    stdout, stderr, launch counts)].  Every rank is killed if the group
-    outlasts ``timeout``."""
+    with ``env`` added to this process's environment (their chunks eager
+    with ``eager``); returns [(exit code, stdout, stderr, launch counts)].
+    Every rank is killed if the group outlasts ``timeout``."""
     port = free_port()
     procs = [subprocess.Popen([sys.executable, "-c", RANK_WORKER, str(i), str(port),
-                               str(nproc), str(tiles), *args], cwd=HERE,
+                               str(nproc), str(tiles), "eager" if eager else "graphs",
+                               *args], cwd=HERE,
                               env={**os.environ, **(env or {})},
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for i in range(nproc)]
@@ -1215,12 +1489,14 @@ GLOO = "gloo (host-staged; ranks share a card)"
 
 
 def mp_run(tmp, label, cfg_path, args, nproc, tiles, kernel, transport, want_file,
-           per_step=False):
+           per_step=False, eager=False):
     """One multi-process run on a 2x2 mesh, checked; gloo runs share the
     first card.  ``kernel`` is the one kernel launched (None: torch ops
     only), 5 times a tile and pass for K3, once for the others, and once a
-    tile and step on a per-step path.  Returns (the run's file, the launch
-    counts summed over the ranks, its throughput line)."""
+    tile and step on a per-step path.  Gloo ranks run eager chunks by the
+    capture rule, NCCL ranks captured ones unless ``eager`` (under
+    ``disable_graphs()``); the banner must say which.  Returns (the run's
+    file, the launch counts summed over the ranks, its throughput line)."""
     from climate_sim_tpu_torch.config import merged_config
 
     px, py = 2, 2
@@ -1228,9 +1504,14 @@ def mp_run(tmp, label, cfg_path, args, nproc, tiles, kernel, transport, want_fil
             f"--mesh.y={py}", f"--output.dir={os.path.join(tmp, label)}", "--write_final=true"]
     cfg = merged_config(cfg_path, full)
     t0 = time.perf_counter()
-    results = run_ranks(nproc, tiles, full, one_card_env() if transport == GLOO else None)
+    results = run_ranks(nproc, tiles, full, one_card_env() if transport == GLOO else None,
+                        eager=eager)
     wall = time.perf_counter() - t0
     out0, counts = check_ranks(label, results, transport)
+    chunks = ("eager chunks (gloo transport, host-staged)" if transport == GLOO else
+              "eager chunks (graphs disabled)" if eager else "chunks as CUDA graphs")
+    if chunks not in out0:
+        fail(f"{label}: rank 0's banner does not say {chunks!r}")
     m = re.search(r"^passes: timed=(\d+) warmup=(\d+)$", out0, re.M)
     expect = cfg.steps if per_step else expected_tile_passes(cfg, px, py)
     per_pass = 5 if kernel == "K3" else 1
@@ -1246,7 +1527,8 @@ def mp_run(tmp, label, cfg_path, args, nproc, tiles, kernel, transport, want_fil
     what = (f"{kernel} launches {counts[kernel]} = {per_pass} x ({expect} timed +"
             f" {m.group(2)} warm-up {unit}) x {px * py} tiles" if kernel
             else f"no kernel launched ({expect} timed steps of torch ops)")
-    print(f"[multiprocess:{label}] {nproc} ranks x {tiles} tile(s), transport {transport}:"
+    print(f"[multiprocess:{label}] {nproc} ranks x {tiles} tile(s), transport {transport},"
+          f" {chunks}:"
           f" exit 0 on every rank, {what}; file byte-identical to the single-process mesh"
           f" run; timing: {timing}; throughput: {rate}; {wall:.1f} s with process start")
     return cfg.resolved_output_path(), counts, rate
@@ -1300,8 +1582,12 @@ def phase_nccl(torch, tmp):
     """With four or more cards, NCCL_RUNS one rank per card over NCCL, each
     held to the single-process 2x2 mesh over the same four cards (its file
     byte for byte, its rate printed beside), with the checks of
-    :func:`mp_run`; with fewer cards, a line that they need 4.  Returns the
-    launch counts over the ranks and the throughput lines."""
+    :func:`mp_run`; the ranks replay captured chunks.  The runs named in
+    NCCL_EAGER_TURNS then run eager (``disable_graphs()`` in each rank)
+    and captured again, in turns, each file byte-identical to the single
+    process's too.  With fewer cards, a line that they need 4.  Returns
+    the launch counts over the ranks (the first, captured run of each) and
+    the throughput lines."""
     from climate_sim_tpu_torch.config import merged_config
     from climate_sim_tpu_torch.runtime import driver
 
@@ -1330,6 +1616,17 @@ def phase_nccl(torch, tmp):
             cfg.resolved_output_path(), per_step)
         if kernel:
             launches[kernel] += counts[kernel]
+        if label not in NCCL_EAGER_TURNS:
+            continue
+        turns = {"graphed": [rates[f"{label}_nccl"]], "eager": []}
+        for eager in (True, True, False):
+            name = "eager" if eager else "graphed"
+            _, _, rate = mp_run(tmp, f"{label}_nccl_{name}", cfg_path, extra, 4, 1, kernel,
+                                "nccl", cfg.resolved_output_path(), per_step, eager)
+            turns[name].append(rate)
+        rates[f"{label}_nccl_eager"] = turns["eager"]
+        print(f"[multiprocess:{label}_nccl] in turns (graphed, eager, eager, graphed):"
+              f" graphed {turns['graphed']}; eager {turns['eager']}")
     return launches, rates
 
 
@@ -1844,7 +2141,9 @@ def phase_tile_timing(torch, device):
 def phase_profile(torch, device, tmp, label, args, n_devices, kernel):
     """A 1000-step bench_4096 run through the driver with ``args`` on
     ``[device] * n_devices``, output off, unprofiled and then with
-    ``profile_dir``: the kernel time by name from the trace, ``kernel``'s
+    ``profile_dir``: the kernel time by name from the trace (which must
+    hold ``kernel``'s events; on a mesh of the card, replayed from graphs,
+    exactly as many as the timed passes' counted launches), ``kernel``'s
     launches, and the busy share of each wall."""
     from climate_sim_tpu_torch.config import merged_config
     from climate_sim_tpu_torch.runtime import driver
@@ -1873,9 +2172,20 @@ def phase_profile(torch, device, tmp, label, args, n_devices, kernel):
             by_name[key] = (n + 1, us + ev.get("dur", 0.0))
     total_ms = sum(us for _, us in by_name.values()) / 1e3
     k_n, k_us = by_name.get(f"band_kernel ({kernel})", (0, 0.0))
+    if not k_n:
+        fail(f"profile {label}: the trace holds no {kernel} kernel event"
+             f" ({len(by_name)} kernel names traced)")
+    # The trace spans the timed loop: the launches less the warm-up's.
+    timed, warm = (int(v) for v in re.search(r"^passes: timed=(\d+) warmup=(\d+)$",
+                                             out, re.M).groups())
+    want = launches * timed // (timed + warm)
+    if "chunks as CUDA graphs" in out and k_n != want:
+        fail(f"profile {label}: the trace holds {k_n} {kernel} events of replayed"
+             f" graphs; the run counted {launches} launches, {want} of them timed")
     print(f"[profile] {label}, 1000 steps, output off: timing wall {walls['unprofiled']:.4f} s"
           f" unprofiled, {walls['profiled']:.4f} s profiled; {kernel} launches {launches}"
-          f" (incl. warm-up), {k_us / 1e3:.2f} ms of {kernel} in {k_n} traced launches;"
+          f" (incl. warm-up; {want} timed), {k_us / 1e3:.2f} ms of {kernel} in {k_n}"
+          f" traced launches;"
           f" kernel time {total_ms:.1f} ms, busy {total_ms / 1e3 / walls['profiled']:.1%}"
           f" of the profiled wall, {total_ms / 1e3 / walls['unprofiled']:.1%} of the"
           f" unprofiled")
@@ -1911,6 +2221,29 @@ def multiprocess_only(torch, device, nccl_only) -> int:
     print(json.dumps({"multiprocess": {
         "launches": {n: launches[n] + nccl_launches[n] for n in KERNEL_NAMES},
         "throughput": {**rates, **nccl_rates}}}))
+    return 0
+
+
+def graphs_only(torch, device) -> int:
+    """``python3 chip_smoke.py --graphs-only``: ``phase_graphs``, then
+    phase 7's bench_4096 slab run and 4001² carrier run, each with its
+    checks and again under ``disable_graphs()`` (files byte-identical).
+    Ends with a JSON line of the eager and graphed chunk times, not the
+    ``ok`` line of a full run."""
+    ms = phase_graphs(torch, device)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        files = {}
+        for label, cfg_path, extra, mesh_xy, kernel in (
+            ("bench_4096_2x2_slab", BENCH_CFG, BENCH_STEPS, (2, 2), "K4"),
+            (*CARRIER_RUNS[0], "K5"),
+        ):
+            files[label] = phase_sharded_run(torch, device, label, cfg_path, extra, mesh_xy,
+                                             kernel, tmp)[2]
+        phase_eager_files(torch, device, tmp, files)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"graphs": {"chunk_ms": ms}}))
     return 0
 
 
@@ -1954,6 +2287,8 @@ def main() -> int:
         return 0
     if args in (["--multiprocess-only"], ["--nccl-only"]):
         return multiprocess_only(torch, device, args[0] == "--nccl-only")
+    if args == ["--graphs-only"]:
+        return graphs_only(torch, device)
     for flag, phase in (("--tools-only", phase_tools), ("--study-only", phase_study),
                         ("--latency-only", phase_latency),
                         ("--bench-only", bench_after_timing)):
@@ -1990,8 +2325,10 @@ def main() -> int:
             n, _, files[label] = phase_sharded_run(
                 torch, device, label, cfg_path, extra, mesh_xy, kernel, tmp)
             launches[kernel] += n
+        phase_eager_files(torch, device, tmp, files)
         launches["K2"] += phase_per_step(torch, device)[0]
         launches["K2"] += phase_padded_per_step(torch, device)
+        phase_graphs(torch, device)
         # The multi-process runs, each held to phase 7's run of its config.
         refs = dict(zip((run[0] for run in MP_RUNS),
                         (files["bench_4096_2x2_slab"], files[CARRIER_RUNS[0][0]],

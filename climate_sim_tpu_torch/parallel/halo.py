@@ -24,7 +24,9 @@ holds ``None`` for another rank's tile.
 Exchange order, as in the JAX package: x faces first, then y faces at the
 x-extended width, so corner ghosts hold the diagonal neighbours' data.
 
-Advances (``advance(chunk)`` -> fn(tiles) -> tiles):
+Advances (``advance(chunk)`` -> fn(tiles) -> tiles, cached per chunk
+length and, where :func:`..runtime.graphs.capture_rule` allows, one
+captured CUDA graph a chunk; see :func:`_make_chunk_advance`):
 
 * :func:`build_sharded_advance`: per step, the width-1 exchange with BCs
   (:func:`exchange_and_pad`) and an interior step per tile (K2 or torch
@@ -45,8 +47,10 @@ Grids the mesh does not divide:
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -56,6 +60,7 @@ from ..ops.boundary import _ghost_line
 from ..ops.cuda_sharded import (
     NO_FLAGS,
     carrier_tile_slab_multistep,
+    prepadded_kernel_step,
     sharded_tile_slab_multistep,
     tile_region_multistep,
 )
@@ -88,6 +93,62 @@ def _tilewise(mesh: Mesh, fn: Callable[[int, int], torch.Tensor]) -> Tiles:
 
 Move = Tuple[Tuple[int, int], Tuple[int, int], Optional[tuple]]
 
+# ``mesh.rounds`` runs modulo this, so a batch's tags stay below 2**31.
+ROUNDS = 4096
+
+# The kernel wrappers a mesh chunk launches through (each counts on its
+# ``launches``); every one of them launches the one kernel of
+# csrc/stencil_core.cuh, whose symbol holds CHUNK_KERNEL.
+_CHUNK_WRAPPERS = (
+    prepadded_kernel_step,
+    tile_region_multistep,
+    sharded_tile_slab_multistep,
+    carrier_tile_slab_multistep,
+)
+CHUNK_KERNEL = "band_kernel"
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkCounts:
+    """The counters a mesh chunk moves: each of :data:`_CHUNK_WRAPPERS`'
+    launches, ``mesh.copies`` and ``mesh.rounds``.  ``after - before`` is
+    what a chunk counted; :meth:`add` adds such a delta to the mesh's
+    counters, :meth:`restore` sets them back to a reading."""
+
+    launches: Tuple[int, ...]
+    copies: collections.Counter
+    rounds: int
+
+    @classmethod
+    def read(cls, mesh: Mesh) -> "ChunkCounts":
+        return cls(tuple(fn.launches for fn in _CHUNK_WRAPPERS),
+                   collections.Counter(mesh.copies), mesh.rounds)
+
+    @property
+    def kernel_launches(self) -> int:
+        return sum(self.launches)
+
+    def __sub__(self, before: "ChunkCounts") -> "ChunkCounts":
+        return ChunkCounts(tuple(a - b for a, b in zip(self.launches, before.launches)),
+                           self.copies - before.copies,
+                           (self.rounds - before.rounds) % ROUNDS)
+
+    def restore(self, mesh: Mesh) -> None:
+        """Set the counters to this reading (``mesh.copies`` in place:
+        callers hold the Counter)."""
+        for fn, n in zip(_CHUNK_WRAPPERS, self.launches):
+            fn.launches = n
+        mesh.copies.clear()
+        mesh.copies.update(self.copies)
+        mesh.rounds = self.rounds
+
+    def add(self, mesh: Mesh) -> None:
+        """Add this delta to the counters."""
+        for fn, n in zip(_CHUNK_WRAPPERS, self.launches):
+            fn.launches += n
+        mesh.copies.update(self.copies)
+        mesh.rounds = (mesh.rounds + self.rounds) % ROUNDS
+
 
 def _deliver(parts: Tiles, mesh: Mesh, moves: Sequence[Move], out: Tiles) -> None:
     """For each ``(src, dst, key)`` of ``moves``, ``parts`` of tile src into
@@ -101,7 +162,7 @@ def _deliver(parts: Tiles, mesh: Mesh, moves: Sequence[Move], out: Tiles) -> Non
     tells two payloads between one pair of ranks apart."""
     px = mesh.shape["x"]
     base = mesh.rounds * mesh.size
-    mesh.rounds = (mesh.rounds + 1) % 4096
+    mesh.rounds = (mesh.rounds + 1) % ROUNDS
     sends, recvs, slots = [], [], []
     for (sy, sx), (dy, dx), key in moves:
         tag = base + dy * px + dx
@@ -223,12 +284,22 @@ def exchange_halos_slabs(tiles: Tiles, mesh: Mesh, k: int, wrap_x: bool = True,
     return xhalo, yhalo
 
 
-def _make_chunk_advance(tile_pass, k: int):
+def _make_chunk_advance(tile_pass, k: int, mesh: Mesh):
     """``advance(chunk)`` running ceil(chunk/k) tile passes (a remainder
-    pass takes fewer steps).  ``advance.pass_count(chunk)`` is that number,
-    per tile; ``advance.steps_per_pass`` is k."""
+    pass takes fewer steps), cached per chunk length as the JAX package
+    caches its ``jit`` (halo.py:187-200 there).  Where the capture rule
+    allows (:func:`..runtime.graphs.capture_rule`, decided here from the
+    mesh and its transport), the chunk is a
+    :class:`..runtime.graphs.GraphedChunk`, which replays one recorded
+    chunk per call (the lengths' graphs share one memory pool); else, or
+    when called inside ``disable_graphs()``, it runs eagerly.
+    ``advance.pass_count(chunk)`` is the passes per tile,
+    ``advance.steps_per_pass`` k, and ``advance.eager_why`` None for a
+    captured advance, else the rule's reason."""
+    from ..runtime import graphs
 
-    def advance(chunk: int):
+    @functools.lru_cache(maxsize=None)
+    def eager(chunk: int):
         def body(tiles: Tiles) -> Tiles:
             n = 0
             while n < chunk:
@@ -239,6 +310,20 @@ def _make_chunk_advance(tile_pass, k: int):
 
         return body
 
+    pool = graphs.Pool()
+
+    @functools.lru_cache(maxsize=None)
+    def graphed(chunk: int):
+        return graphs.GraphedChunk(eager(chunk), mesh, chunk, pool)
+
+    eager_why = graphs.capture_rule(mesh)
+
+    def advance(chunk: int):
+        if eager_why is None and not graphs.graphs_disabled():
+            return graphed(chunk)
+        return eager(chunk)
+
+    advance.eager_why = eager_why
     advance.pass_count = lambda chunk: -(-chunk // k)
     advance.steps_per_pass = k
     return advance
@@ -274,7 +359,7 @@ def build_sharded_multistep_advance(cfg: SimConfig, mesh: Mesh, dt: float):
             cfg, dt, kk,
         ))
 
-    advance = _make_chunk_advance(tile_pass, k)
+    advance = _make_chunk_advance(tile_pass, k, mesh)
     advance.kernel, advance.path = "K4", "slab"
     return advance
 
@@ -307,10 +392,16 @@ def build_sharded_overlap_advance(cfg: SimConfig, mesh: Mesh, dt: float):
        under the tile's edge flags.
 
     All five K3 launches write their regions of one fresh tile, so there
-    is no stitch pass.  Band height, halo depth and band width are all k
-    (the JAX package rounds them to TPU sublanes).  Returns None when a
-    tile has no interior (my or mx <= 2k) or the mesh does not divide the
-    grid; the caller then takes the slab path.
+    is no stitch pass.  Each pass forks the side streams after all the
+    work launched so far and joins them before the bands, so a tile read
+    on a side stream, or a window read on the current one, is freed only
+    behind its last read in stream order: no ``record_stream`` is needed,
+    and a captured chunk's pool reuses each pass's blocks (a recorded
+    cross-stream use would hold every block to the capture's end).  Band
+    height, halo depth and band width are all k (the JAX package rounds
+    them to TPU sublanes).  Returns None when a tile has no interior (my
+    or mx <= 2k) or the mesh does not divide the grid; the caller then
+    takes the slab path.
     """
     geo = _tile_cfg_k(cfg, mesh)
     if geo is None:
@@ -351,10 +442,6 @@ def build_sharded_overlap_advance(cfg: SimConfig, mesh: Mesh, dt: float):
         for y, x in mesh.local_tiles():
             l_, r_, b_, t_ = mesh.edge_flags(y, x)
             bot, top, left, right = wins[y][x]
-            if side:
-                tiles[y][x].record_stream(side[tiles[y][x].device])
-                for w in wins[y][x]:
-                    w.record_stream(torch.cuda.current_stream(w.device))
             o = out[y][x]
             for win, flags, ny_r, nx_r, region in (
                 (bot, (l_, r_, b_, 0), kk, mx, o[:kk]),
@@ -366,7 +453,7 @@ def build_sharded_overlap_advance(cfg: SimConfig, mesh: Mesh, dt: float):
                                       khalo=kk, out=region)
         return out
 
-    advance = _make_chunk_advance(tile_pass, k)
+    advance = _make_chunk_advance(tile_pass, k, mesh)
     advance.kernel, advance.path = "K3", "overlap"
     return advance
 
@@ -376,18 +463,14 @@ def build_sharded_advance(cfg: SimConfig, mesh: Mesh, dt: float,
     """``advance(k)`` -> fn advancing the tiles k steps, each step the
     width-1 exchange with BCs (:func:`exchange_and_pad`) and
     ``interior_step`` (padded tile (my+2, mx+2) -> interior (my, mx), K2 or
-    torch ops; see :func:`..ops.step.make_interior_step`) on every tile."""
+    torch ops; see :func:`..ops.step.make_interior_step`) on every tile: a
+    chunk of one-step passes (:func:`_make_chunk_advance`)."""
 
-    def advance(k: int):
-        def body(tiles: Tiles) -> Tiles:
-            for _ in range(k):
-                padded = exchange_and_pad(tiles, cfg, mesh, 0.0)
-                tiles = _tilewise(mesh, lambda y, x: interior_step(padded[y][x]))
-            return tiles
+    def step(tiles: Tiles, kk: int) -> Tiles:
+        padded = exchange_and_pad(tiles, cfg, mesh, 0.0)
+        return _tilewise(mesh, lambda y, x: interior_step(padded[y][x]))
 
-        return body
-
-    advance.pass_count = lambda k: k
+    advance = _make_chunk_advance(step, 1, mesh)
     advance.kernel = getattr(interior_step, "kernel", None)
     advance.path = "per-step"
     return advance
@@ -499,7 +582,8 @@ def build_carrier_slab_advance(cfg: SimConfig, mesh: Mesh, dt: float):
     pass runs fewer sub-steps on the same KH-deep staging.
 
     Staging writes the pad lines of the carrier tiles in place and nothing
-    else; every kernel writes a fresh tile.  So the true extent of a
+    else (in a captured chunk, those of the graph's static input); every
+    kernel writes a fresh tile.  So the true extent of a
     carrier held for a snapshot stays valid while the next span runs, as
     long as the copier reads only :attr:`advance.extract`'s views.  The
     exchange payloads are taken (``cat`` copies) before any in-place
@@ -625,7 +709,7 @@ def build_carrier_slab_advance(cfg: SimConfig, mesh: Mesh, dt: float):
                  if mesh.is_local(y, x) else None
                  for x in range(e_x + 1)] for y in range(e_y + 1)]
 
-    advance = _make_chunk_advance(tile_pass, KH)
+    advance = _make_chunk_advance(tile_pass, KH, mesh)
     advance.embed, advance.embed_from, advance.extract = embed, embed_from, extract
     advance.windows = windows
     advance.carrier_shape = (my * py, mx * px)

@@ -187,7 +187,11 @@ class Transport:
 
     ``kind`` "nccl": device tensors on an NCCL subgroup, matched in issue
     order (every rank walks the tiles in one order); waiting on the works
-    orders the current stream after them, not the host.  ``kind`` "gloo":
+    orders the current stream after them, not the host.  Inside a chunk's
+    CUDA graph capture (:mod:`.graphs`) the batch is recorded into the
+    graph: the wait orders the capturing stream, the receive buffers come
+    from the graph's pool, and the communicator is already live (the
+    probe of :func:`make_transport`).  ``kind`` "gloo":
     each payload staged through a host tensor (pinned for a CUDA tile) on
     the default group, matched by tag, then copied to the destination's
     device.

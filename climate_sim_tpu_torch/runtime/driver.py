@@ -8,12 +8,17 @@ open snapshot file -> time loop with pre-update snapshots at
 
 The time loop is chunked: each span between snapshot points is dispatched
 as pieces of at most 256 steps, each piece a chain of kernel passes (or of
-torch-ops steps on the plain path).  On CUDA the launches are asynchronous,
-so a snapshot is taken by launching the next span first and then copying the
-held field to the host on a side stream; every kernel writes a fresh output
-tensor, never its input, so the held snapshot stays valid while the span
-runs (the carrier path's staging writes pad lines of its input in place,
-and the copier reads only the true extent).
+torch-ops steps on the plain path).  On a mesh of one card (and on NCCL
+ranks, one card each) a piece is one replay of a CUDA graph, captured for
+each piece length before the timed loop as the JAX driver compiles its
+chunk programs (:mod:`.graphs`); elsewhere it is dispatched pass by pass.
+On CUDA the launches are asynchronous, so a snapshot is taken by launching
+the next span first and then copying the held field to the host on a side
+stream; every kernel writes a fresh output tensor, never its input, and a
+replayed chunk copies its input into the graph's own tensors and returns
+fresh copies of its output, so the held snapshot stays valid while the
+span runs (the carrier path's staging writes pad lines of its input in
+place, and the copier reads only the true extent).
 
 Devices, as in the JAX package (driver.py:281-287): the caller names a list
 of torch devices (a device may repeat), ``max_devices`` keeps the first N,
@@ -88,7 +93,7 @@ from ..parallel.mesh import (
     local_windows,
     make_mesh,
 )
-from . import distributed
+from . import distributed, graphs
 
 # Longest piece of a span dispatched as one chunk program.  Kept from the
 # JAX package (driver.py:521-529) so both packages run the same pass
@@ -204,6 +209,13 @@ def span_lengths(cfg: SimConfig) -> List[int]:
     return spans
 
 
+def chunk_lengths(cfg: SimConfig) -> List[int]:
+    """The distinct piece lengths the timed loop dispatches, ascending: the
+    chunk programs the JAX driver compiles before its loop (driver.py:535-547
+    there), and the chunks this driver captures before its own."""
+    return sorted({kk for k in span_lengths(cfg) for kk in span_pieces(k)})
+
+
 def run_pass_count(cfg: SimConfig, advance) -> int:
     """Passes the timed loop makes: one bf16 rounding event each."""
     return sum(
@@ -254,7 +266,33 @@ def _path_name(advance, device: torch.device) -> str:
     else:
         what = f"{kernel} plain version"
     path = getattr(advance, "path", None)
-    return f"{path}, {what}" if path else what
+    name = f"{path}, {what}" if path else what
+    if not hasattr(advance, "eager_why"):
+        return name
+    why = advance.eager_why
+    return f"{name}, {'chunks as CUDA graphs' if why is None else f'eager chunks ({why})'}"
+
+
+def _start_profiler(cfg: SimConfig, device: torch.device, world: int):
+    """None without ``cfg.profile_dir``; else a started ``torch.profiler``
+    in its warm-up step (traced, then dropped), whose next step, ended by
+    ``stop()``, is written to ``trace.json`` (``trace_rank<r>.json`` on
+    rank r of several) under the directory."""
+    if not cfg.profile_dir:
+        return None
+    _log(f"profiler trace -> {cfg.profile_dir}")
+    os.makedirs(cfg.profile_dir, exist_ok=True)
+    name = "trace.json" if world == 1 else f"trace_rank{distributed.rank()}.json"
+    path = os.path.join(cfg.profile_dir, name)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(
+        activities=activities,
+        schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1),
+        on_trace_ready=lambda prof: prof.export_chrome_trace(path))
+    profiler.start()
+    return profiler
 
 
 def _mesh_advance(cfg: SimConfig, mesh, dt: float, device: torch.device):
@@ -497,11 +535,25 @@ def run_simulation(
 
     copier = _HostCopier(used)
 
-    # Warm-up outside the timed region: one 1-step pass builds and loads
-    # the kernel library (first use) and brings the device up to speed.
+    # Outside the timed region, as the JAX driver compiles every chunk
+    # program before its loop: every chunk length the loop dispatches is
+    # captured (a captured mesh advance; no-op otherwise), then one eager
+    # 1-step pass builds and loads the kernel library (first use) and
+    # brings the device up to speed, so neither counts in ``timing:``.
+    # With ``profile_dir`` the profiler starts before that pass, in a
+    # warm-up step that is traced and dropped, so the trace holds the timed
+    # loop alone, without the profiler's start-up cost.
+    for kk in chunk_lengths(cfg):
+        chunk = advance(kk)
+        if isinstance(chunk, graphs.GraphedChunk):
+            chunk.capture(u)
+    profiler = _start_profiler(cfg, device, world)
     warmup_passes = advance.pass_count(1)
-    advance(1)(u)
+    with graphs.disable_graphs():
+        advance(1)(u)
     _synchronize(used)
+    if profiler is not None:
+        profiler.step()
     timed_passes = run_pass_count(cfg, advance)
 
     def dispatch_span(u, k):
@@ -523,15 +575,6 @@ def run_simulation(
         _log("Opening NetCDF file for output")
         writer = _open_writer(cfg, mesh, out_path)
     try:
-        profiler = None
-        if cfg.profile_dir:
-            _log(f"profiler trace -> {cfg.profile_dir}")
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if device.type == "cuda":
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            profiler = torch.profiler.profile(activities=activities)
-            profiler.start()
-
         snapshots = 0
         diag_pending = []  # (step, on-device stats vector): fetched AFTER timing
         n = 0
@@ -557,10 +600,7 @@ def run_simulation(
         _synchronize(used)
         total = time.perf_counter() - t0
         if profiler is not None:
-            profiler.stop()
-            os.makedirs(cfg.profile_dir, exist_ok=True)
-            name = "trace.json" if world == 1 else f"trace_rank{distributed.rank()}.json"
-            profiler.export_chrome_trace(os.path.join(cfg.profile_dir, name))
+            profiler.stop()  # writes the trace
 
         for step, vec in diag_pending:
             mn, mx, mean, l2 = _read_stats(vec, points)

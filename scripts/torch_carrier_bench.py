@@ -7,7 +7,9 @@ mesh of the card at each size, and with ``--single`` the single-device
 path (K1) on the same grid, for comparison.  The JAX package pads a 1x1
 carrier to its TPU alignment; the port plans with no alignment, so on one
 tile the carrier is the grid itself and the rate is K5's own per-tile cost
-with its host work a pass.
+with its staging a pass.  On the card each chunk is one replay of a
+captured CUDA graph, as the driver runs it
+(``climate_sim_tpu_torch/runtime/graphs.py``).
 
 The timing is the port's protocol (``climate_sim_tpu_torch/benchproto.py``):
 chunks of ``--chunk`` steps, ``--reps`` chained chunks a window (0: scaled

@@ -19,6 +19,10 @@ instead and runs the 0.2-weighted 5-point update on the tile: the
 exchange under compute load.  The control does the same arithmetic with
 every shift the identity.
 
+It measures the eager rendezvous, the host's issue of each batch
+included, so its shifts run under ``disable_graphs()`` (a captured
+chunk would replay the batches with no host work between them).
+
 Each rank times R and 2R iterations (best of ``--trials``; on the card
 ``torch.cuda.synchronize()`` before every clock read, since NCCL's
 ``wait()`` orders the streams but not the host); ``cost = (T(2R) - T(R))
@@ -114,6 +118,14 @@ def loaded_iter(tiles, mesh, coll: bool):
 
 
 def worker(a) -> int:
+    """One rank's timings, every exchange eager (see the docstring)."""
+    from climate_sim_tpu_torch.runtime.graphs import disable_graphs
+
+    with disable_graphs():
+        return _measure(a)
+
+
+def _measure(a) -> int:
     import torch
 
     from climate_sim_tpu_torch.config import SimConfig

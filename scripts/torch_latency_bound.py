@@ -27,6 +27,11 @@ of the mesh on each axis, where the wrap-head batches widen the gap
 between batches and depth most).  The host waits, so the slope is the
 batch count: the host issues a pass's batches in turn.
 
+Every chunk runs eagerly, under ``disable_graphs()``: the injected wait is
+host code that runs once per batch, and a captured chunk (a CUDA graph)
+runs no host code between its batches, so it could not be injected; the
+model's T_pass is the eager pass whose batches it injects on.
+
 The model then takes T_pass of a k=8 pass from a rate:
 ``--hw-slab-gpts`` / ``--hw-overlap-gpts``, or, with ``--device cuda``
 and neither given, the slab and overlap rates measured here on a 2x2
@@ -244,6 +249,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     if (a.hw_slab_gpts is None) != (a.hw_overlap_gpts is None):
         ap.error("--hw-slab-gpts and --hw-overlap-gpts go together")
 
+    from climate_sim_tpu_torch.runtime.graphs import disable_graphs
+
+    with disable_graphs():
+        return run(a)
+
+
+def run(a) -> int:
+    """The measurements and the model, every chunk eager."""
     import torch
 
     from climate_sim_tpu_torch.parallel.mesh import choose_mesh_shape, make_mesh

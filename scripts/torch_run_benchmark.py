@@ -26,6 +26,11 @@ Platforms:
   counts are capped at the card count.  It needs a card and never runs on
   the CPU.
 
+Each run's chunks follow the driver's capture rule
+(``climate_sim_tpu_torch/runtime/graphs.py``): NCCL ranks, one a card,
+replay captured CUDA graphs; ranks sharing a card (gloo) and one process
+over several cards run eager chunks.
+
 ``--device`` is ``cuda`` (the default) or ``cpu``; without a card the
 ``cuda`` device fails before any run and writes nothing.  Unrecognised
 ``--key=value`` tokens pass through to the CLI (``--config=...``).

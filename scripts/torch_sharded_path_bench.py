@@ -6,8 +6,11 @@ of the card (``make_mesh(1, 1, [device])``) runs each mesh path's whole
 machinery (the exchange, the band windows, the per-tile launches) with no
 neighbour: a size-1 axis delivers each tile its own part and copies
 nothing.  So a path's rate here is its own per-tile cost, kernels plus the
-host's work per pass, without the exchange between tiles; beside K1's rate
-in the same process, the difference is that host work a pass.
+exchange's own work per pass, without the exchange between tiles; beside
+K1's rate in the same process, the difference is that work a pass.  On
+the card each chunk of a mesh path is one replay of a captured CUDA graph,
+as the driver runs it (``climate_sim_tpu_torch/runtime/graphs.py``), so
+the host's enqueue is not in it, as the JAX script times ``jit`` programs.
 
 Paths timed at --nx/--ny per tile (default 4096²), bench_config's mixed
 BCs, f32, the kernels selected (``kernel=pallas``):

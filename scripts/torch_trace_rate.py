@@ -8,7 +8,10 @@ single-device advance (K1 on a card) at ``bench_config`` (4096², chunks of
 100 steps, 3 chunks by default), then read the chunks straight from the
 device timeline: the kernel events (``cat == "kernel"``), or, on the CPU
 only, the plain version's top-level operator events (``cat == "cpu_op"``);
-a card's trace without kernel events (no CUPTI) is an error.
+a card's trace without kernel events (no CUPTI) is an error, and so is
+one whose stencil kernel events differ from the launches the kernel
+wrappers counted in its chunks: the tracer lost launches in some calls,
+so such a trace is taken again, up to three times in all.
 Every chunk issues the same launches, so the events, in time order, split
 into ``reps`` equal runs, one a chunk.  A chunk's time is the device's time
 for it, its kernels' summed durations, as the JAX tool reads a chunk's
@@ -17,7 +20,8 @@ rate and cannot show the card idle inside a chunk.  The chunk's span, from
 its first event's start to its last one's end, is printed beside it: the
 profiler adds host time to every launch, and where that outruns a kernel
 the card idles inside the span (K1 at bench_4096 on an NVIDIA H100 80GB
-HBM3 at 700 W: busy about half of it); the busy share printed beside the
+HBM3 at 700 W: busy about half of it when the trace started at the
+chunks, 98.6-98.8% after the warm-up step); the busy share printed beside the
 span is the only reading of that idle time, and it is the profiler's, not
 the unprofiled run's.
 
@@ -45,10 +49,32 @@ from typing import List, Optional
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+TRIES = 3
+
+
+def stencil_launches() -> int:
+    """The stencil kernel's launches counted so far by K1-K5's wrappers."""
+    from climate_sim_tpu_torch.ops.cuda_stencil import multistep_kernel_step
+    from climate_sim_tpu_torch.parallel.halo import _CHUNK_WRAPPERS
+
+    return multistep_kernel_step.launches + sum(fn.launches for fn in _CHUNK_WRAPPERS)
+
+
+def stencil_events(trace_path: str) -> int:
+    """The stencil kernel's events in a chrome trace."""
+    from climate_sim_tpu_torch.parallel.halo import CHUNK_KERNEL
+
+    with open(trace_path) as f:
+        return sum(1 for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel" and CHUNK_KERNEL in e.get("name", ""))
+
+
 def capture(nx: int, ny: int, chunk: int, reps: int, trace_path: str,
-            bc: str = "bench", device: str = "cuda") -> None:
+            bc: str = "bench", device: str = "cuda") -> int:
     """Write a chrome trace of ``reps`` chained ``chunk``-step calls of the
-    advance, after one untimed chunk (the kernel library's build and load)."""
+    advance, after one untimed chunk (the kernel library's build and load)
+    and ``reps`` more in the profiler's warm-up step, which is traced and
+    dropped.  Returns the stencil launches the traced chunks counted."""
     import torch
 
     from climate_sim_tpu_torch.benchproto import bench_config, sync, warm_up
@@ -87,11 +113,18 @@ def capture(nx: int, ny: int, chunk: int, reps: int, trace_path: str,
     activities = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(reps):
-            u = fn(u)
-        sync(u)
-    prof.export_chrome_trace(trace_path)
+    with torch.profiler.profile(
+            activities=activities,
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1),
+            on_trace_ready=lambda p: p.export_chrome_trace(trace_path)) as prof:
+        for _ in range(2):
+            before = stencil_launches()
+            for _ in range(reps):
+                u = fn(u)
+            sync(u)
+            launched = stencil_launches() - before
+            prof.step()
+    return launched
 
 
 def device_events(events: List[dict], device: str = "cuda"):
@@ -191,7 +224,15 @@ def main(argv: Optional[List[str]] = None) -> int:
             outdir = a.trace_dir or tmp
             os.makedirs(outdir, exist_ok=True)
             path = os.path.join(outdir, "trace.json")
-            capture(a.nx, a.ny, a.chunk, a.reps, path, a.bc, a.device)
+            for attempt in range(1, TRIES + 1):
+                launched = capture(a.nx, a.ny, a.chunk, a.reps, path, a.bc, a.device)
+                traced = stencil_events(path)
+                if traced == launched:
+                    break
+                print(f"trace_rate: the trace holds {traced} of the {launched} stencil"
+                      f" launches of its chunks (try {attempt} of {TRIES})", file=sys.stderr)
+            else:
+                raise ValueError(f"{TRIES} traces lost stencil launches")
         r = analyze(path, a.nx, a.ny, a.chunk, a.reps, a.device)
     print(f"program: {r['program']}  chunks: {r['n_chunks']}"
           f"  ({r['events_per_chunk']} {r['events']} events a chunk)")

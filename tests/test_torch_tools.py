@@ -453,6 +453,35 @@ def test_trace_rate_captures_on_the_cpu(tmp_path):
     assert (tmp_path / "trace.json").exists()
 
 
+@pytest.mark.parametrize("lost", [1, 2, 3])
+def test_trace_rate_takes_again_a_trace_that_lost_launches(lost, tmp_path, monkeypatch,
+                                                          capsys):
+    """A trace whose stencil kernel events fall short of the launches its
+    chunks counted is taken again, up to three times in all; a third such
+    trace raises."""
+    tr = load_script("torch_trace_rate")
+    tries = []
+    real = tr.capture
+
+    def capture(*args, **kw):
+        real(*args, **kw)
+        tries.append(1)
+        return 39
+
+    monkeypatch.setattr(tr, "capture", capture)
+    monkeypatch.setattr(tr, "stencil_events", lambda path: 39 - (len(tries) <= lost))
+    argv = ["--device=cpu", "--nx=64", "--ny=64", "--chunk=8", "--reps=3",
+            f"--trace_dir={tmp_path}"]
+    if lost < tr.TRIES:
+        rc, out = run_main(tr.main, argv)
+        assert rc == 0 and "chunks: 3" in out
+    else:
+        with pytest.raises(ValueError, match="3 traces lost stencil launches"):
+            run_main(tr.main, argv)
+    assert len(tries) == min(lost + 1, tr.TRIES)
+    assert capsys.readouterr().err.count("38 of the 39 stencil launches") == lost
+
+
 def test_trace_rate_without_a_card_fails(no_card):
     assert load_script("torch_trace_rate").main(["--nx=64", "--ny=64"]) != 0
 
