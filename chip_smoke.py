@@ -68,13 +68,18 @@ Phases, each of which raises on failure (nothing is caught):
    2 ranks of 2 tiles, and a 4-rank restart from the slab run's file, each
    file byte-identical to its single-process counterpart, the launches
    summed over the ranks equal to the pass schedule, the log on rank 0
-   only (and, with four cards, one rank per card over NCCL: the slab,
-   carrier and overlap runs, bench_4096's per-step path with torch ops and
-   the per-step path with K2 on the remainder tiles of a 2^21 x 3 grid,
-   each file byte-identical to the single-process mesh over the four
-   cards, its rate beside that mesh's; the ranks replay captured chunks,
-   and the slab, carrier and per-step torch-ops runs also run eager in
-   turns with them);
+   only; then, with two cards or more, one process over a 2x2 mesh of the
+   cards (``phase_nccl``): the slab, carrier and overlap runs, bench_4096's
+   per-step path with torch ops and the per-step path with K2 on the
+   remainder tiles of a 2^21 x 3 grid, each replaying its chunks as one
+   CUDA graph that spans the cards, in turns with its eager run under
+   ``disable_graphs()`` (graphed, eager, eager, graphed; files
+   byte-identical), and one traced replay of each path's 100-step chunk
+   held to its counted launches on every card; and, with four cards, one
+   rank per card over NCCL on each, each file byte-identical to the
+   single-process run's, its rate beside it; the ranks replay captured
+   chunks, and the slab, carrier and per-step torch-ops runs also run
+   eager in turns with them);
 9. the port's tools, each through its entry point: an IC file from
    ``scripts/torch_generate_ic.py`` at 4096² run through the CLI and held
    to the preset run; ``scripts/torch_hw_conformance.py`` (every path x
@@ -120,9 +125,9 @@ repository beside it, the script exits non-zero and prints no result.
 ``python3 chip_smoke.py --multiprocess-only`` runs phases 1 and 2, the
 three phase-7 runs that the multi-process runs are held to, and the
 multi-process runs (with four cards, the NCCL runs too);
-``python3 chip_smoke.py --nccl-only`` phases 1 and 2, the NCCL runs
-with their single-process references and the NCCL exchange-latency runs
-(it needs four cards);
+``python3 chip_smoke.py --nccl-only`` phases 1 and 2, ``phase_nccl``
+(one process over the cards, graphed and eager; with four cards the NCCL
+runs) and the NCCL exchange-latency runs (it needs four cards);
 ``python3 chip_smoke.py --tools-only`` runs phases 1, 2 and 9's tools;
 ``python3 chip_smoke.py --study-only`` phases 1, 2 and ``phase_study``;
 ``python3 chip_smoke.py --latency-only`` phases 1, 2 and ``phase_latency``;
@@ -939,6 +944,18 @@ def expected_tile_passes(cfg, px, py):
                for piece in driver.span_pieces(span))
 
 
+def schedule_counts(cfg, kernel, per_step, warmup, px=2, py=2):
+    """(timed passes a tile, launch counts) of a run of ``cfg`` on a px x py
+    mesh with ``warmup`` untimed passes: ``kernel`` (None: torch ops only)
+    5 times a tile and pass for K3, once for the others, and once a tile
+    and step on a per-step path; every other kernel 0."""
+    expect = cfg.steps if per_step else expected_tile_passes(cfg, px, py)
+    want = {name: 0 for name in KERNEL_NAMES}
+    if kernel:
+        want[kernel] = (5 if kernel == "K3" else 1) * (expect + warmup) * px * py
+    return expect, want
+
+
 def phase_sharded_run(torch, device, label, cfg_path, extra, mesh_xy, kernel, tmp):
     """One sharded run through run_simulation on ``[device] * n``."""
     import numpy as np
@@ -1179,11 +1196,12 @@ def same_tiles(torch, label, got, want):
                      f" eager chunk's (max abs err {err:.3g})")
 
 
-def traced_kernels(torch, device, run, trace_path):
-    """Kernel events by name in a ``torch.profiler`` trace of one ``run()``,
-    after one more ``run()`` in the profiler's warm-up step (which traces
-    and drops its events, so none of the traced step's is lost to the
-    tracer's start)."""
+def traced_kernels(torch, devices, run, trace_path, key=lambda ev: ev["name"]):
+    """Kernel events in a ``torch.profiler`` trace of one ``run()``, counted
+    by ``key(event)`` (the kernel's name unless named), after one more
+    ``run()`` in the profiler's warm-up step (which traces and drops its
+    events, so none of the traced step's is lost to the tracer's start);
+    each run is followed by a synchronize of every card of ``devices``."""
     import collections
 
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -1193,11 +1211,12 @@ def traced_kernels(torch, device, run, trace_path):
                  on_trace_ready=lambda prof: prof.export_chrome_trace(trace_path)) as prof:
         for _ in range(2):
             run()
-            torch.cuda.synchronize(device)
+            for d in devices:
+                torch.cuda.synchronize(d)
             prof.step()
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
-    return collections.Counter(ev["name"] for ev in events if ev.get("cat") == "kernel")
+    return collections.Counter(key(ev) for ev in events if ev.get("cat") == "kernel")
 
 
 def phase_graphs(torch, device):
@@ -1262,10 +1281,10 @@ def phase_graphs(torch, device):
                     same_tiles(torch, label, got, want)
                     cases += 1
                     launched = {k: v for k, v in got_counts.items() if v}
-                    stencil_nodes = sum(v for k, v in nodes.items() if CHUNK_KERNEL in k)
+                    stencil_nodes = sum(v for (k, _), v in nodes.items() if CHUNK_KERNEL in k)
                     trace = ""
                     if bc == "mixed" and di == 0 and chunk == GRAPH_TIMED_CHUNK:
-                        events = traced_kernels(torch, device, lambda: fn(tiles),
+                        events = traced_kernels(torch, [device], lambda: fn(tiles),
                                                 os.path.join(trace_dir, "trace.json"))
                         seen = sum(v for k, v in events.items() if CHUNK_KERNEL in k)
                         if seen != sum(got_counts.values()):
@@ -1513,11 +1532,8 @@ def mp_run(tmp, label, cfg_path, args, nproc, tiles, kernel, transport, want_fil
     if chunks not in out0:
         fail(f"{label}: rank 0's banner does not say {chunks!r}")
     m = re.search(r"^passes: timed=(\d+) warmup=(\d+)$", out0, re.M)
-    expect = cfg.steps if per_step else expected_tile_passes(cfg, px, py)
+    expect, want = schedule_counts(cfg, kernel, per_step, int(m.group(2)), px, py)
     per_pass = 5 if kernel == "K3" else 1
-    want = {name: 0 for name in KERNEL_NAMES}
-    if kernel:
-        want[kernel] = per_pass * (expect + int(m.group(2))) * px * py
     if int(m.group(1)) != expect or counts != want:
         fail(f"{label}: launches over the ranks {counts} != {want}")
     same_file(label, cfg.resolved_output_path(), want_file)
@@ -1578,42 +1594,122 @@ def phase_multiprocess(torch, device, tmp, refs):
     return launches, rates
 
 
+def cards_replay_trace(torch, label, cfg, cards, tmp):
+    """The GRAPH_TIMED_CHUNK-step chunk that ``cfg``'s run over ``cards``
+    captures (one graph spanning the cards): one replay's launches, held to
+    the stencil kernel events of a traced replay, which must lie on every
+    card, as the graph's stencil kernel nodes must.  Prints the capture's
+    seconds and the memory it added on each card."""
+    from climate_sim_tpu_torch.parallel.halo import CHUNK_KERNEL
+    from climate_sim_tpu_torch.runtime import driver, graphs
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        u, adv, mesh, _, _ = driver.prepare(cfg, cards)
+    distinct = mesh.distinct_devices()
+    fn = adv(GRAPH_TIMED_CHUNK)
+    if not isinstance(fn, graphs.GraphedChunk):
+        fail(f"{label}: the {GRAPH_TIMED_CHUNK}-step chunk over {distinct} is not captured"
+             f" ({adv.eager_why})")
+    done = fn.capture(u)
+    node_cards = {card for name, card in done.kernel_nodes if CHUNK_KERNEL in name}
+    reset_counts()
+    fn(u)
+    for d in distinct:
+        torch.cuda.synchronize(d)
+    launched = sum(read_counts().values())
+    events = traced_kernels(torch, distinct, lambda: fn(u),
+                            os.path.join(tmp, f"{label}_trace.json"),
+                            key=lambda ev: (ev["name"], ev.get("args", {}).get("device")))
+    seen = {}
+    for (name, dev), n in events.items():
+        if CHUNK_KERNEL in name:
+            seen[dev] = seen.get(dev, 0) + n
+    on_every = sorted(seen) == sorted(d.index for d in distinct)
+    if sum(seen.values()) != launched or (launched and not on_every) or \
+            (launched and node_cards != set(distinct)):
+        fail(f"{label}: a traced replay ran {CHUNK_KERNEL} kernels {seen} by card, the graph's"
+             f" nodes lie on {sorted(map(str, node_cards))}; one replay counted {launched}"
+             f" launches over {distinct}")
+    added = ", ".join(f"{d} {n / 2**20:+.0f} MiB" for d, n in done.memory.items())
+    print(f"[multiprocess:{label}] the {GRAPH_TIMED_CHUNK}-step chunk as one graph over"
+          f" {len(distinct)} cards: a traced replay ran {launched} {CHUNK_KERNEL} kernels"
+          f" ({seen} by card), as counted; capture {done.seconds:.3f} s, memory added {added}")
+
+
 def phase_nccl(torch, tmp):
-    """With four or more cards, NCCL_RUNS one rank per card over NCCL, each
-    held to the single-process 2x2 mesh over the same four cards (its file
-    byte for byte, its rate printed beside), with the checks of
-    :func:`mp_run`; the ranks replay captured chunks.  The runs named in
-    NCCL_EAGER_TURNS then run eager (``disable_graphs()`` in each rank)
-    and captured again, in turns, each file byte-identical to the single
-    process's too.  With fewer cards, a line that they need 4.  Returns
-    the launch counts over the ranks (the first, captured run of each) and
-    the throughput lines."""
+    """One process's tiles over several cards, and one rank per card over
+    NCCL.  With two or more cards, each of NCCL_RUNS runs as one process
+    over a 2x2 mesh of the cards (cuda:0-3 with four) in turns graphed,
+    eager (``disable_graphs()``), eager, graphed: the graphed runs' banners
+    say ``chunks as CUDA graphs`` (one graph spanning the cards), the eager
+    runs' ``eager chunks (graphs disabled)``, and every file is
+    byte-identical to the first's; then one traced replay of the path's
+    100-step chunk (:func:`cards_replay_trace`).  With four or more cards,
+    each also runs one rank per card over NCCL, held to the first
+    single-process file byte for byte, with the checks of :func:`mp_run`;
+    the ranks replay captured chunks.  The runs named in NCCL_EAGER_TURNS
+    then run eager (``disable_graphs()`` in each rank) and captured again,
+    in turns, each file byte-identical too.  Every run's launches equal
+    its pass schedule times the tiles.  With fewer cards, a line that the
+    phase needs them.  Returns the launch counts of the first, captured
+    single-process run of each and of its NCCL ranks, and the throughput
+    lines."""
     from climate_sim_tpu_torch.config import merged_config
-    from climate_sim_tpu_torch.runtime import driver
+    from climate_sim_tpu_torch.runtime import driver, graphs
 
     launches = {n: 0 for n in KERNEL_NAMES}
     rates = {}
     n_cards = torch.cuda.device_count()
-    if n_cards < 4:
-        print(f"[multiprocess] {n_cards} card(s): the one-rank-per-card NCCL runs need 4")
+    if n_cards < 2:
+        print(f"[multiprocess] {n_cards} card(s): one process over several cards needs 2,"
+              f" the one-rank-per-card NCCL runs 4")
         return launches, rates
-    cards = [torch.device("cuda", i) for i in range(4)]
+    cards = [torch.device("cuda", i % n_cards) for i in range(4)]
     for label, cfg_path, extra, kernel, per_step in NCCL_RUNS:
-        one = f"{label}_4_cards_single_process"
-        args = ["--kernel=pallas", *extra, "--mesh.x=2", "--mesh.y=2", "--write_final=true",
-                f"--output.dir={os.path.join(tmp, one)}"]
-        cfg = merged_config(cfg_path, args)
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            driver.run_simulation(cfg, cards)
-        out = buf.getvalue()
-        path = re.search(r"  path: (.*)$", out, re.M)
-        rates[one] = re.search(r"^throughput: (.*)$", out, re.M).group(1)
-        print(f"[multiprocess:{one}] path: {path.group(1) if path else '?'};"
-              f" throughput: {rates[one]}")
+        one = f"{label}_{min(n_cards, 4)}_cards_single_process"
+        turns = {"graphed": [], "eager": []}
+        first = None
+        for turn, eager in enumerate((False, True, True, False)):
+            args = ["--kernel=pallas", *extra, "--mesh.x=2", "--mesh.y=2",
+                    "--write_final=true", f"--output.dir={os.path.join(tmp, f'{one}_{turn}')}"]
+            cfg = merged_config(cfg_path, args)
+            buf = io.StringIO()
+            reset_counts()
+            with contextlib.redirect_stdout(buf), \
+                    (graphs.disable_graphs() if eager else contextlib.nullcontext()):
+                driver.run_simulation(cfg, cards)
+            out = buf.getvalue()
+            chunks = "eager chunks (graphs disabled)" if eager else "chunks as CUDA graphs"
+            path = re.search(r"  path: (.*)$", out, re.M).group(1)
+            if not path.endswith(chunks):
+                fail(f"{one} turn {turn}: the banner's path is {path!r}, not {chunks!r}")
+            m = re.search(r"^passes: timed=(\d+) warmup=(\d+)$", out, re.M)
+            expect, want = schedule_counts(cfg, kernel, per_step, int(m.group(2)))
+            if int(m.group(1)) != expect or read_counts() != want:
+                fail(f"{one} turn {turn}: launches {read_counts()} != {want}")
+            captures = re.findall(r"^  graph: (.*)$", out, re.M)
+            if eager == bool(captures):
+                fail(f"{one} turn {turn}: graph lines {captures} for {chunks}")
+            if first is None:
+                first = cfg.resolved_output_path()
+                if kernel:
+                    launches[kernel] += want[kernel]
+                print(f"[multiprocess:{one}] path: {path}; launches {want} (the pass"
+                      f" schedule); " + "; ".join(captures))
+            else:
+                same_file(f"{one} turn {turn}", cfg.resolved_output_path(), first)
+            turns["eager" if eager else "graphed"].append(
+                re.search(r"^throughput: (.*)$", out, re.M).group(1))
+        rates[one], rates[f"{one}_eager"] = turns["graphed"], turns["eager"]
+        print(f"[multiprocess:{one}] in turns (graphed, eager, eager, graphed), every file"
+              f" byte-identical to the first: graphed {turns['graphed']}; eager {turns['eager']}")
+        cards_replay_trace(torch, one, merged_config(cfg_path, ["--kernel=pallas", *extra,
+                                                                "--mesh.x=2", "--mesh.y=2"]),
+                           cards, tmp)
+        if n_cards < 4:
+            continue
         _, counts, rates[f"{label}_nccl"] = mp_run(
-            tmp, f"{label}_nccl", cfg_path, extra, 4, 1, kernel, "nccl",
-            cfg.resolved_output_path(), per_step)
+            tmp, f"{label}_nccl", cfg_path, extra, 4, 1, kernel, "nccl", first, per_step)
         if kernel:
             launches[kernel] += counts[kernel]
         if label not in NCCL_EAGER_TURNS:
@@ -1622,11 +1718,13 @@ def phase_nccl(torch, tmp):
         for eager in (True, True, False):
             name = "eager" if eager else "graphed"
             _, _, rate = mp_run(tmp, f"{label}_nccl_{name}", cfg_path, extra, 4, 1, kernel,
-                                "nccl", cfg.resolved_output_path(), per_step, eager)
+                                "nccl", first, per_step, eager)
             turns[name].append(rate)
         rates[f"{label}_nccl_eager"] = turns["eager"]
         print(f"[multiprocess:{label}_nccl] in turns (graphed, eager, eager, graphed):"
               f" graphed {turns['graphed']}; eager {turns['eager']}")
+    if n_cards < 4:
+        print(f"[multiprocess] {n_cards} cards: the one-rank-per-card NCCL runs need 4")
     return launches, rates
 
 

@@ -159,7 +159,10 @@ def _deliver(parts: Tiles, mesh: Mesh, moves: Sequence[Move], out: Tiles) -> Non
 
     Every rank walks the same moves in the same order, so the batches
     match; a tag of the batch's round and the destination tile's index
-    tells two payloads between one pair of ranks apart."""
+    tells two payloads between one pair of ranks apart.  A peer copy
+    between cards records events on both cards' current streams, so in a
+    chunk captured over several cards it is ordered on the streams joined
+    to the capture (:class:`..runtime.graphs.CudaGraphs`)."""
     px = mesh.shape["x"]
     base = mesh.rounds * mesh.size
     mesh.rounds = (mesh.rounds + 1) % ROUNDS
@@ -367,7 +370,8 @@ def build_sharded_multistep_advance(cfg: SimConfig, mesh: Mesh, dt: float):
 @contextlib.contextmanager
 def _on_side_streams(side: Dict[torch.device, torch.cuda.Stream]):
     """Make each device's side stream current, after it waits for the work
-    launched so far on the device's current stream."""
+    launched so far on the device's current stream (in a captured chunk,
+    each card's stream joined to the capture, which this joins it to)."""
     with contextlib.ExitStack() as stack:
         for dev, s in side.items():
             s.wait_stream(torch.cuda.current_stream(dev))

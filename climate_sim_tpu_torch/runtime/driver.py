@@ -8,10 +8,12 @@ open snapshot file -> time loop with pre-update snapshots at
 
 The time loop is chunked: each span between snapshot points is dispatched
 as pieces of at most 256 steps, each piece a chain of kernel passes (or of
-torch-ops steps on the plain path).  On a mesh of one card (and on NCCL
-ranks, one card each) a piece is one replay of a CUDA graph, captured for
-each piece length before the timed loop as the JAX driver compiles its
-chunk programs (:mod:`.graphs`); elsewhere it is dispatched pass by pass.
+torch-ops steps on the plain path).  On a mesh of CUDA cards in one
+process (one graph spans them) and on NCCL ranks of one card each, a piece
+is one replay of a CUDA graph, captured for each piece length before the
+timed loop as the JAX driver compiles its chunk programs (:mod:`.graphs`;
+a ``graph:`` line each, with its seconds and the memory it added on each
+card); elsewhere it is dispatched pass by pass.
 On CUDA the launches are asynchronous, so a snapshot is taken by launching
 the next span first and then copying the held field to the host on a side
 stream; every kernel writes a fresh output tensor, never its input, and a
@@ -546,7 +548,10 @@ def run_simulation(
     for kk in chunk_lengths(cfg):
         chunk = advance(kk)
         if isinstance(chunk, graphs.GraphedChunk):
-            chunk.capture(u)
+            done = chunk.capture(u)
+            added = ", ".join(f"{d} {n / 2**20:+.1f} MiB" for d, n in done.memory.items())
+            _log(f"  graph: {kk}-step chunk captured in {done.seconds:.3f} s"
+                 f" over {len(mesh.distinct_devices())} card(s); memory added: {added or 'none'}")
     profiler = _start_profiler(cfg, device, world)
     warmup_passes = advance.pass_count(1)
     with graphs.disable_graphs():

@@ -13,8 +13,9 @@ through the port's driver (in this process) or its CLI with
 1. Output off: 4 ranks sharing cuda:0 (gloo, host-staged) against the
    single-process 2x2 mesh of cuda:0, turns single, ranks, ranks, single.
    With four or more cards also: K1 on cuda:0, the single-process 2x2 mesh
-   over four cards and 4 ranks one per card (NCCL), turns K1, mesh, ranks,
-   ranks, mesh, K1.
+   over four cards (its chunks one CUDA graph that spans the cards), the
+   same mesh eager (``disable_graphs()``) and 4 ranks one per card (NCCL),
+   turns K1, mesh, eager mesh, ranks, ranks, eager mesh, mesh, K1.
 2. Output on, ``--out_every=100`` (10 records), one device: the native
    writer against the Python codec (``use_native=False``), turns native,
    python, python, native; then each once with ``profile_dir`` for the
@@ -27,6 +28,11 @@ through the port's driver (in this process) or its CLI with
    cuda:0 (gloo) and, with four cards, one per card (NCCL): the kernel
    time by name, the device copies, and the host's CUDA runtime calls and
    operators by total time (operators nest, so their totals overlap).
+   Then the single-process 2x2 mesh of cuda:0 and, with four cards, over
+   the four (each 200-step span one replayed graph): the same totals, and
+   for each card its kernels' and copies' count, busy ms (the union of
+   their intervals) and span ms (first start to last end), and the first
+   40 device events in time order.
 
 The first line is the card's name and power limit from nvidia-smi; each
 turn prints ``RUN {json}``.  Without a CUDA card the script exits non-zero.
@@ -59,11 +65,12 @@ def parse(out: str) -> dict:
     return {"wall_s": wall, "gpoint_s": rate / 1e3}
 
 
-def in_process(devices, args, writer=None, profile_dir=None) -> dict:
+def in_process(devices, args, writer=None, profile_dir=None, eager=False) -> dict:
     """A driver run in this process; ``writer`` replaces the driver's
-    whole-field snapshot writer."""
+    whole-field snapshot writer; ``eager`` runs it under
+    ``disable_graphs()``."""
     from climate_sim_tpu_torch.config import merged_config
-    from climate_sim_tpu_torch.runtime import driver
+    from climate_sim_tpu_torch.runtime import driver, graphs
 
     if profile_dir:
         args = [*args, f"--profile_dir={profile_dir}"]
@@ -72,7 +79,8 @@ def in_process(devices, args, writer=None, profile_dir=None) -> dict:
     saved = driver.SnapshotWriter
     driver.SnapshotWriter = writer or saved
     try:
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), \
+                (graphs.disable_graphs() if eager else contextlib.nullcontext()):
             driver.run_simulation(cfg, devices)
     finally:
         driver.SnapshotWriter = saved
@@ -110,6 +118,36 @@ def trace_totals(path: str, top: int = 8) -> dict:
         out[cat] = {k: [n, round(us / 1e3, 3)] for k, (n, us) in ranked}
         out[f"{cat}_ms"] = round(sum(us for _, us in by.values()) / 1e3, 3)
     return out
+
+
+def device_split(path: str, first: int = 40) -> dict:
+    """For each card of a chrome trace, its kernel and copy events' count,
+    busy ms (the union of their intervals) and span ms (first start to
+    last end); and the ``first`` of them in time order, each [card, name,
+    start us from the first, duration us]."""
+    with open(path) as f:
+        events = [ev for ev in json.load(f)["traceEvents"]
+                  if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    events.sort(key=lambda ev: ev["ts"])
+    cards = {}
+    for ev in events:
+        cards.setdefault(ev.get("args", {}).get("device"), []).append(ev)
+    split = {}
+    for card, evs in cards.items():
+        busy, end = 0.0, None
+        for ev in evs:
+            start, stop = ev["ts"], ev["ts"] + ev.get("dur", 0.0)
+            if end is None or start >= end:
+                busy += stop - start
+            elif stop > end:
+                busy += stop - end
+            end = stop if end is None else max(end, stop)
+        split[str(card)] = {"events": len(evs), "busy_ms": round(busy / 1e3, 3),
+                            "span_ms": round((end - evs[0]["ts"]) / 1e3, 3)}
+    t0 = events[0]["ts"] if events else 0.0
+    return {"by_card": split, "first_events": [
+        [ev.get("args", {}).get("device"), ev["name"][:40], round(ev["ts"] - t0, 1),
+         round(ev.get("dur", 0.0), 1)] for ev in events[:first]]}
 
 
 def main() -> int:
@@ -151,6 +189,8 @@ def main() -> int:
             four = {
                 "K1 on cuda:0": lambda: in_process([dev0], OFF),
                 "single-process 2x2 mesh over 4 cards": lambda: in_process(cards, [*OFF, *MESH]),
+                "single-process 2x2 mesh over 4 cards, eager":
+                    lambda: in_process(cards, [*OFF, *MESH], eager=True),
                 "4 ranks, one per card": lambda: ranks(smoke, 4, [*OFF, *MESH], False),
             }
             order = list(four) + list(four)[::-1]
@@ -187,6 +227,17 @@ def main() -> int:
             res = ranks(smoke, 4, [*short, *MESH, f"--profile_dir={prof}"], share)
             show(4, f"{name}, 200 steps, profiled rank 0",
                  {**res, **trace_totals(os.path.join(prof, "trace_rank0.json"))})
+        meshes = {"single-process 2x2 mesh of cuda:0": [dev0] * 4}
+        if torch.cuda.device_count() >= 4:
+            meshes["single-process 2x2 mesh over 4 cards"] = \
+                [torch.device("cuda", i) for i in range(4)]
+        for name, devices in meshes.items() if 4 in items else ():
+            prof = os.path.join(tmp, "prof_mesh")
+            shutil.rmtree(prof, ignore_errors=True)
+            res = in_process(devices, [*short, *MESH], profile_dir=prof)
+            trace = os.path.join(prof, "trace.json")
+            show(4, f"{name}, 200 steps, profiled",
+                 {**res, **trace_totals(trace), **device_split(trace)})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return 0

@@ -28,8 +28,9 @@ Platforms:
 
 Each run's chunks follow the driver's capture rule
 (``climate_sim_tpu_torch/runtime/graphs.py``): NCCL ranks, one a card,
-replay captured CUDA graphs; ranks sharing a card (gloo) and one process
-over several cards run eager chunks.
+and one process over several cards replay captured CUDA graphs (the
+latter one graph spanning the cards); ranks sharing a card (gloo) run
+eager chunks.
 
 ``--device`` is ``cuda`` (the default) or ``cpu``; without a card the
 ``cuda`` device fails before any run and writes nothing.  Unrecognised

@@ -5,14 +5,21 @@ There is no card here, so a stand-in for ``torch.cuda``'s graphs
 (:class:`FakeGraphs`) takes the capture primitive's place: its capture
 runs the chunk once on the static input and keeps it, and its replay runs
 it again and writes the result into the static output tensors, as a
-replayed graph overwrites them.  With it, and the capture rule forced to
-capture, the tests hold:
+replayed graph overwrites them.  Several cards are CPU devices of
+distinct indices (``cpu:0`` .. ``cpu:3``, :data:`FAKE_CARDS`), which a mesh
+counts as distinct devices while torch computes on the CPU.  With it, and
+the capture rule forced to capture, the tests hold:
 
 * the chunk lengths the driver captures before its timed loop to the set
   the JAX driver compiles for the same config (``advance(k)`` spied on in
   both);
 * ``advance(chunk)`` cached per length;
 * the capture rule on mesh and transport stand-ins;
+* a chunk over several cards handed to the primitive with every card, in
+  mesh order, and held to the JAX package's sharded run;
+* the primitive itself (:class:`..runtime.graphs.CudaGraphs`) over a
+  recording stand-in for ``torch.cuda`` (:class:`FakeCuda`): warm-up,
+  fork, pools, join and the replay's waits on every card, in order;
 * the counters (the kernel wrappers' launches, ``mesh.copies``) after
   warm-up, capture and N replays equal to the eager run's, and the tiles
   bit-identical;
@@ -25,68 +32,84 @@ the kernel entries that halo calls are wrapped to count a launch each.
 """
 
 import collections
+import contextlib
+import ctypes
 import dataclasses
+import gc
 import os
 
 import numpy as np
 import pytest
 import torch
 import jax
+import jax.numpy as jnp
 
+from climate_sim_tpu import config as jconfig
 from climate_sim_tpu.config import merged_config as jmerged_config
+from climate_sim_tpu.parallel import mesh as jmesh
 from climate_sim_tpu.runtime import driver as jdriver
 
 from climate_sim_tpu_torch.config import merged_config
+from climate_sim_tpu_torch.convert import from_reference_sharded
 from climate_sim_tpu_torch.ops import cuda_sharded
 from climate_sim_tpu_torch.ops.init import gaussian_hotspot
 from climate_sim_tpu_torch.ops.step import make_interior_step
 from climate_sim_tpu_torch.parallel import halo
-from climate_sim_tpu_torch.parallel.mesh import make_mesh, shard_field
+from climate_sim_tpu_torch.parallel.mesh import gather_field, make_mesh, shard_field
 from climate_sim_tpu_torch.runtime import driver, graphs
 from climate_sim_tpu_torch.runtime.distributed import Transport
+
+from test_torch_kernel import make_cfgs
+from test_torch_parallel import field, grid_for, jax_advance, port_advance
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = os.path.join(REPO, "configs", "bench_4096.yaml")
 CPU = torch.device("cpu")
 CUDA0, CUDA1 = torch.device("cuda", 0), torch.device("cuda", 1)
+FAKE_CARDS = [torch.device("cpu", i) for i in range(4)]
+BAND = "void climate::band_kernel<double>"
 
 
 class FakeGraphs:
     """The capture primitive's stand-in on the CPU (see the module
     docstring); ``events`` records ("warm_up" | "pool" | "capture" |
-    "instantiate" | "replay"), ``pools`` the pool each capture was given.
-    A graph's kernel nodes are the stencil launches its wrappers counted
-    while it was captured."""
+    "instantiate" | "replay"), ``cards`` (event, the cards it was given)
+    for each warm-up, capture and replay, ``pools`` the pool each capture
+    was given.  A graph's kernel nodes are the stencil launches its
+    wrappers counted while it was captured, dealt over its cards in turn."""
 
     def __init__(self):
-        self.events, self.pools = [], []
+        self.events, self.pools, self.cards = [], [], []
 
     def pool(self):
         self.events.append("pool")
         return object()
 
-    def warm_up(self, device, fn):
+    def warm_up(self, devices, fn):
         self.events.append("warm_up")
+        self.cards.append(("warm_up", tuple(devices)))
         fn()
 
-    def capture(self, device, fn, pool):
+    def capture(self, devices, fn, pool):
         self.events.append("capture")
+        self.cards.append(("capture", tuple(devices)))
         self.pools.append(pool)
         before = sum(f.launches for f in halo._CHUNK_WRAPPERS)
         out = fn()
         launched = sum(f.launches for f in halo._CHUNK_WRAPPERS) - before
-        return (fn, out, launched), out
+        return (fn, out, launched, tuple(devices)), out
 
     def kernel_nodes(self, graph):
-        return collections.Counter({"void climate::band_kernel<double>": graph[2]}
-                                   if graph[2] else {})
+        _, _, launched, devices = graph
+        return collections.Counter((BAND, devices[i % len(devices)]) for i in range(launched))
 
     def instantiate(self, graph):
         self.events.append("instantiate")
 
     def replay(self, graph):
         self.events.append("replay")
-        fn, out, _ = graph
+        self.cards.append(("replay", graph[3]))
+        fn, out, _, _ = graph
         for row, new_row in zip(out, fn()):
             for t, new in zip(row, new_row):
                 if t is not None:
@@ -140,11 +163,11 @@ PATHS = {
 }
 
 
-def build(path, dtype=torch.float64):
-    """(advance, its 2x2 CPU mesh, the IC's tiles) of ``path``."""
+def build(path, dtype=torch.float64, devices=(CPU,) * 4):
+    """(advance, its 2x2 mesh of ``devices``, the IC's tiles) of ``path``."""
     builder, nx, ny = PATHS[path]
     cfg = bench_cfg(nx, ny)
-    mesh = make_mesh(2, 2, [CPU] * 4)
+    mesh = make_mesh(2, 2, list(devices))
     adv = builder(cfg, mesh)
     assert adv is not None, path
     u = gaussian_hotspot(cfg, dtype, CPU)
@@ -173,17 +196,22 @@ def _mesh(devices, owners=None, rank=0, transport=None):
 @pytest.mark.parametrize("mesh, want", [
     (lambda: _mesh([CPU] * 4), "tiles on the CPU"),
     (lambda: _mesh([CPU] * 4, [0, 0, 1, 1], 0, Transport("gloo")), "tiles on the CPU"),
-    (lambda: _mesh([CUDA0, CUDA0, CUDA1, CUDA1]), "tiles of one process on several cards"),
+    (lambda: _mesh([CUDA0, CUDA0, CUDA1, CUDA1]), None),
     (lambda: _mesh([CUDA0] * 4, [0, 1, 2, 3], 1, Transport("gloo")),
      "gloo transport, host-staged"),
     (lambda: _mesh([CUDA0] * 4, [0, 0, 0, 0], 1), "no tile in this process"),
     (lambda: _mesh([CUDA0] * 4), None),
     (lambda: _mesh([CUDA0, CUDA1, CUDA0, CUDA1], [0, 1, 2, 3], 2, Transport("nccl")), None),
+    (lambda: _mesh([CUDA0, CUDA1, CUDA0, CUDA1], [0, 0, 1, 1], 1, Transport("nccl")),
+     "a rank on several cards"),
+    (lambda: _mesh([CUDA0, CUDA1, CUDA0, CUDA1], [0, 0, 1, 1], 0, Transport("gloo")),
+     "gloo transport, host-staged"),
 ], ids=["cpu", "cpu_gloo", "several_cards", "gloo_ranks", "no_tile", "one_card",
-        "nccl_ranks"])
+        "nccl_ranks", "nccl_rank_on_several_cards", "gloo_rank_on_several_cards"])
 def test_capture_rule(mesh, want):
-    """Eager for CPU tiles, gloo and several cards in one process;
-    captured for one card and for NCCL ranks; eager everywhere inside
+    """Eager for CPU tiles, gloo, and a rank of several processes that holds
+    several cards; captured for one process's tiles on one card or several,
+    and for NCCL ranks of one card; eager everywhere inside
     ``disable_graphs()``."""
     m = mesh()
     assert graphs.capture_rule(m) == want
@@ -361,7 +389,7 @@ def test_capture_raises_when_the_graph_differs_from_the_count(extra, counting,
 
     class Miscounting(FakeGraphs):
         def kernel_nodes(self, graph):
-            return collections.Counter({"void climate::band_kernel<double>": graph[2] + extra})
+            return collections.Counter({(BAND, graph[3][0]): graph[2] + extra})
 
     monkeypatch.setattr(graphs, "CUDA_GRAPHS", Miscounting())
     monkeypatch.setattr(graphs, "capture_rule", lambda mesh: None)
@@ -373,14 +401,237 @@ def test_capture_raises_when_the_graph_differs_from_the_count(extra, counting,
     assert counts(mesh) == start
 
 
+# --- several cards -----------------------------------------------------------
+
+@pytest.mark.parametrize("devices", [FAKE_CARDS, FAKE_CARDS[:2] * 2],
+                         ids=["four_cards", "two_cards_twice"])
+def test_chunk_over_several_cards_hands_the_primitive_every_card(devices, counting,
+                                                                 fake_graphs):
+    """The warm-up, the capture and every replay get every card of the
+    mesh's tiles, each once, in mesh order, and the graph's stencil kernel
+    nodes lie on each of them."""
+    adv, _, tiles = build("slab", devices=devices)
+    cards = tuple(dict.fromkeys(devices))
+    fn = adv(3)
+    fn(fn(tiles))
+    assert fake_graphs.cards == [("warm_up", cards), ("capture", cards),
+                                 ("replay", cards), ("replay", cards)]
+    assert {card for _, card in fn.capture(tiles).kernel_nodes} == set(cards)
+
+
+@pytest.mark.parametrize("where", ["first_card", "no_card"])
+def test_capture_raises_when_kernel_nodes_miss_a_card(where, counting, monkeypatch):
+    """A graph over four cards whose stencil kernel nodes all lie on one of
+    them, or in a context of none of them, raises at capture though their
+    number equals the launches counted; the counters stay as they were."""
+
+    class OneCard(FakeGraphs):
+        def kernel_nodes(self, graph):
+            _, _, launched, devices = graph
+            card = devices[0] if where == "first_card" else None
+            return collections.Counter({(BAND, card): launched})
+
+    monkeypatch.setattr(graphs, "CUDA_GRAPHS", OneCard())
+    monkeypatch.setattr(graphs, "capture_rule", lambda mesh: None)
+    adv, mesh, tiles = build("slab", devices=FAKE_CARDS)
+    start = counts(mesh)
+    with pytest.raises(RuntimeError, match="band_kernel nodes lie on .*, not on every card"):
+        adv(2)(tiles)
+    assert counts(mesh) == start
+
+
+@pytest.mark.parametrize("path", ["slab", "overlap", "perstep"])
+def test_graphed_chunk_over_fake_cards_matches_eager_and_jax(path, fake_graphs):
+    """On a 2x2 mesh over four fake cards, an 11-step and a 5-step chunk,
+    captured (through the stand-in) and replayed, equal the eager chunks bit
+    for bit and lie within 1e-11 of the JAX package's sharded advance on
+    four virtual devices (f64, bench BCs)."""
+    nx, ny = grid_for(2, 2)
+    jcfg, tcfg = make_cfgs(nx, ny, "MIX1", kernel="pallas", out_every=8, precision="f64")
+    jm, tm = jmesh.make_mesh(2, 2, jax.devices()[:4]), make_mesh(2, 2, FAKE_CARDS)
+    u = field(ny, nx, seed=14)
+    ju = jax.device_put(jnp.asarray(u), jmesh.field_sharding(jm))
+    _, tiles = from_reference_sharded(jconfig.config_to_dict(jcfg), u, tm)
+    jadv, tadv = jax_advance(path, jcfg, jm), port_advance(path, tcfg, tm)
+    graphed = eager = tiles
+    for chunk in (11, 5):
+        ju = jadv(chunk)(ju)
+        assert isinstance(tadv(chunk), graphs.GraphedChunk)
+        graphed = tadv(chunk)(graphed)
+        with graphs.disable_graphs():
+            eager = tadv(chunk)(eager)
+    assert fake_graphs.cards[:2] == [("warm_up", tuple(FAKE_CARDS)),
+                                     ("capture", tuple(FAKE_CARDS))]
+    assert same_tiles(graphed, eager)
+    np.testing.assert_allclose(gather_field(graphed, tm).numpy(), np.asarray(ju),
+                               rtol=0, atol=1e-11)
+
+
+class FakeCuda:
+    """``torch.cuda``'s stream, graph and pool calls as
+    :class:`graphs.CudaGraphs` makes them, recorded on the CPU in ``log``:
+    ("wait", stream, the stream it waits on), ("body", {card: its current
+    stream}), ("capture_begin", capture stream, pool, error mode),
+    ("capture_end",), ("route" | "unroute" | "release", card),
+    ("instantiate",) and ("replay", the stream launched on).  A stream is
+    named "<n>@<card>", n counting the streams made; a card's default
+    stream is "d@<card>".  ``device`` is the current card's index."""
+
+    def __init__(self, monkeypatch):
+        self.log, self.made, self.current, self.device = [], 0, {}, 0
+        fake = self
+
+        class Stream:
+            def __init__(self, device=None, name=None):
+                self.device = torch.device(device)
+                if name is None:
+                    fake.made += 1
+                self.name = name or f"{fake.made}@{self.device.index}"
+
+            def wait_stream(self, other):
+                fake.log.append(("wait", self.name, other.name))
+
+        def current_stream(device=None):
+            i = fake.device if device is None else torch.device(device).index
+            return fake.current.setdefault(i, Stream(torch.device("cuda", i), f"d@{i}"))
+
+        @contextlib.contextmanager
+        def stream(s):
+            prev = current_stream(s.device)
+            fake.current[s.device.index] = s
+            try:
+                yield
+            finally:
+                fake.current[s.device.index] = prev
+
+        @contextlib.contextmanager
+        def device(d):
+            prev, fake.device = fake.device, torch.device(d).index
+            try:
+                yield
+            finally:
+                fake.device = prev
+
+        class CUDAGraph:
+            def __init__(self, keep_graph=False):
+                assert keep_graph
+
+            def instantiate(self):
+                fake.log.append(("instantiate",))
+
+            def replay(self):
+                fake.log.append(("replay", current_stream().name))
+
+            def raw_cuda_graph(self):
+                return 1
+
+        @contextlib.contextmanager
+        def graph(g, pool=None, stream=None, capture_error_mode="global"):
+            fake.log.append(("capture_begin", stream.name, pool, capture_error_mode))
+            with device(stream.device), stream_ctx(stream):
+                yield
+            fake.log.append(("capture_end",))
+
+        stream_ctx = stream
+        for name, fn in (("Stream", Stream), ("current_stream", current_stream),
+                         ("stream", stream), ("device", device), ("CUDAGraph", CUDAGraph),
+                         ("graph", graph), ("graph_pool_handle", lambda: (0, 7))):
+            monkeypatch.setattr(torch.cuda, name, fn)
+        for name, what in (("_cuda_beginAllocateCurrentThreadToPool", "route"),
+                           ("_cuda_endAllocateToPool", "unroute"),
+                           ("_cuda_releasePool", "release")):
+            monkeypatch.setattr(torch._C, name,
+                                lambda d, pool, _what=what: fake.log.append((_what, d)))
+
+
+def expected_primitive_log(n):
+    """:class:`FakeCuda`'s log of ``CudaGraphs``' warm-up, capture,
+    instantiation, replay and release over cards 0..n-1 (streams 1..n the
+    warm-up's side streams, n+1 the capture stream on card 0, then one
+    joined stream for each other card)."""
+    others = range(1, n)
+    side = {i: f"{i + 1}@{i}" for i in range(n)}
+    joined = {0: f"{n + 1}@0", **{i: f"{n + 1 + i}@{i}" for i in others}}
+    return [
+        *(("wait", side[i], f"d@{i}") for i in range(n)),
+        ("body", side),
+        *(("wait", f"d@{i}", side[i]) for i in range(n)),
+        ("capture_begin", joined[0], (0, 7), "thread_local"),
+        *(("route", i) for i in others),
+        *(("wait", joined[i], joined[0]) for i in others),
+        ("body", joined),
+        *(("wait", joined[0], joined[i]) for i in others),
+        *(("unroute", i) for i in others),
+        ("capture_end",),
+        ("instantiate",),
+        *(("wait", "d@0", f"d@{i}") for i in others),
+        ("replay", "d@0"),
+        *(("wait", f"d@{i}", "d@0") for i in others),
+        *(("release", i) for i in others),
+    ]
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_cuda_graphs_fork_join_pool_and_wait_on_every_card(n, monkeypatch):
+    """The capture primitive over n cards: the warm-up runs with a side
+    stream current on every card, forked from and joined to its current
+    stream; the capture stream lives on card 0, every other card's stream
+    waits on it (joining the capture) and is that card's current stream
+    while the body runs, that card's allocations routed to the pool of the
+    advance's id until the body ends, and it is joined back before the
+    capture ends; a replay launches on card 0's current stream after every
+    card's current stream, and every card's then waits on it; the other
+    cards' pools are released when the graph is freed, not before."""
+    fake = FakeCuda(monkeypatch)
+    cards = [torch.device("cuda", i) for i in range(n)]
+    prim = graphs.CudaGraphs()
+
+    def body():
+        fake.log.append(("body", {d.index: torch.cuda.current_stream(d).name for d in cards}))
+        return "out"
+
+    prim.warm_up(cards, body)
+    graph, out = prim.capture(cards, body, prim.pool())
+    assert out == "out" and graph.devices == tuple(cards)
+    prim.instantiate(graph)
+    prim.replay(graph)
+    assert not [e for e in fake.log if e[0] == "release"]
+    del graph
+    gc.collect()
+    assert fake.log == expected_primitive_log(n)
+
+
+def test_cuda_graphs_kernel_nodes_by_card(monkeypatch):
+    """The primitive counts a graph's kernel nodes by symbol and card, the
+    card told by the node's context (each card's current context while it
+    is the current device); a node in another context counts under None."""
+    fake = FakeCuda(monkeypatch)
+    band = "climate::band_kernel<float>"
+    driver_ = FakeDriver({1: [("kernel", 11, 0, band, 0x100), ("kernel", 12, 0, band, 0x101),
+                              ("kernel", 13, 0, "elementwise_kernel", 0x101),
+                              ("kernel", 14, 0, band, 0x102), ("kernel", 15, 0, band, 0x999)]},
+                         current=lambda: 0x100 + fake.device)
+    monkeypatch.setattr(ctypes, "CDLL", lambda name: driver_)
+    cards = [torch.device("cuda", i) for i in range(3)]
+    graph = graphs.Graph(torch.cuda.CUDAGraph(keep_graph=True), tuple(cards))
+    assert graphs.CudaGraphs().kernel_nodes(graph) == collections.Counter({
+        (band, cards[0]): 1, (band, cards[1]): 1, ("elementwise_kernel", cards[1]): 1,
+        (band, cards[2]): 1, (band, None): 1})
+
+
 class FakeDriver:
     """``libcuda``'s graph queries over ``graphs``: {handle: [node, ...]},
-    a node ("kernel", func, kern, name), ("graph", child handle) or
+    a node ("kernel", func, kern, name, ctx), ("graph", child handle) or
     ("memcpy",); a node's handle is its (graph, index) packed in an int.
-    ``fail`` names a call that returns an error."""
+    ``fail`` names a call that returns an error.  ``current`` gives the
+    context ``cuCtxGetCurrent`` reports."""
 
-    def __init__(self, graphs_, fail=None):
-        self.graphs, self.fail = graphs_, fail
+    def __init__(self, graphs_, fail=None, current=lambda: None):
+        self.graphs, self.fail, self.current = graphs_, fail, current
+
+    def cuCtxGetCurrent(self, ctx):
+        ctx._obj.value = self.current()
+        return 0
 
     def _node(self, handle):
         return self.graphs[handle.value >> 8][handle.value & 0xFF]
@@ -404,8 +655,8 @@ class FakeDriver:
         return 0
 
     def cuGraphKernelNodeGetParams_v2(self, node, params):
-        _, func, kern, _ = self._node(node)
-        params._obj.func, params._obj.kern = func, kern
+        _, func, kern, _, ctx = self._node(node)
+        params._obj.func, params._obj.kern, params._obj.ctx = func, kern, ctx
         return 0
 
     def _name(self, handle, name, field):
@@ -424,19 +675,19 @@ class FakeDriver:
 
 
 def test_graph_kernel_names_walks_the_graph():
-    """The kernel nodes of a captured graph by symbol, through child
-    graphs, by function or (with none) by kernel handle; other nodes not
-    counted."""
+    """The kernel nodes of a captured graph by symbol and context, through
+    child graphs, by function or (with none) by kernel handle; other nodes
+    not counted."""
+    band = "climate::band_kernel<float>"
     driver_ = FakeDriver({
-        1: [("kernel", 11, 0, "climate::band_kernel<float>"), ("memcpy",), ("graph", 2),
-            ("kernel", 0, 13, "climate::band_kernel<float>")],
-        2: [("kernel", 12, 0, "ncclDevKernel_SendRecv"), ("graph", 3)],
-        3: [("kernel", 14, 0, "climate::band_kernel<float>")],
+        1: [("kernel", 11, 0, band, 0x100), ("memcpy",), ("graph", 2),
+            ("kernel", 0, 13, band, 0x200)],
+        2: [("kernel", 12, 0, "ncclDevKernel_SendRecv", 0x100), ("graph", 3)],
+        3: [("kernel", 14, 0, band, 0x100)],
     })
     assert graphs.graph_kernel_names(driver_, 1) == collections.Counter(
-        {"climate::band_kernel<float>": 3, "ncclDevKernel_SendRecv": 1})
-    assert graphs.graph_kernel_names(driver_, 3) == collections.Counter(
-        {"climate::band_kernel<float>": 1})
+        {(band, 0x100): 2, (band, 0x200): 1, ("ncclDevKernel_SendRecv", 0x100): 1})
+    assert graphs.graph_kernel_names(driver_, 3) == collections.Counter({(band, 0x100): 1})
 
 
 @pytest.mark.parametrize("fail, match", [
@@ -446,7 +697,7 @@ def test_graph_kernel_names_walks_the_graph():
 def test_graph_kernel_names_raises_on_a_driver_error(fail, match):
     """A driver call that fails raises with its status; the second case's
     function has no name the driver knows."""
-    driver_ = FakeDriver({1: [("memcpy",), ("kernel", 98, 0, "x")]}, fail)
+    driver_ = FakeDriver({1: [("memcpy",), ("kernel", 98, 0, "x", 0x100)]}, fail)
     if fail is None:
         driver_._name = lambda handle, name, field: 500
     with pytest.raises(RuntimeError, match=match):
