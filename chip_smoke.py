@@ -85,9 +85,9 @@ Phases, each of which raises on failure (nothing is caught):
    to the preset run; ``scripts/torch_hw_conformance.py`` (every path x
    BC class against the f64 oracle; its ``N cases: ALL OK`` line);
    ``scripts/torch_run_benchmark.py`` on the ``cuda`` and ``multiproc``
-   platforms (the CSV rows printed); ``scripts/torch_trace_rate.py`` at
-   bench_4096; ``scripts/torch_hw_rates.py`` (each path's rate against
-   K1's, held to its band); then the study tools (``phase_study``):
+   platforms (the CSV rows printed); ``scripts/torch_hw_rates.py`` (each
+   path's rate against K1's, held to its band); then the study tools
+   (``phase_study``):
    ``scripts/torch_bf16_study.py`` at its defaults (12 error rows and
    both perf lines, through K1), ``scripts/torch_sharded_path_bench.py``
    and ``scripts/torch_carrier_bench.py --single`` on a 1x1 mesh of the
@@ -1778,7 +1778,7 @@ def phase_tools(torch, device, tmp):
     x BC class against the f64 oracle); ``torch_run_benchmark`` on the
     ``cuda`` platform (4096², one card) and the ``multiproc`` platform
     (strong 1/2/4 ranks at 1024², weak 1/4 ranks of 512² tiles); then
-    ``torch_trace_rate`` at bench_4096 and ``torch_hw_rates``.  Returns
+    ``torch_hw_rates``.  Returns
     the launch counts of the runs made in this process (the harness's
     ranks are processes of their own, uncounted)."""
     import numpy as np
@@ -1852,12 +1852,6 @@ def phase_tools(torch, device, tmp):
                     if not line.startswith("#"):
                         kind = re.sub(r"_\d{8}_\d{6}\.csv$", "", name)
                         print(f"[tools] {kind}: {line.rstrip()}")
-
-    rc, out = captured(load_script("torch_trace_rate").main, [])
-    if rc != 0:
-        fail(f"torch_trace_rate exit code {rc}")
-    for line in out.strip().splitlines():
-        print(f"[tools] trace_rate {line}")
 
     rc, out = captured(load_script("torch_hw_rates").main, [])
     for line in out.strip().splitlines():

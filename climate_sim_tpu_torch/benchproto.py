@@ -1,7 +1,6 @@
 """The benchmark measurement protocol of the port: the counterpart of
 ``climate_sim_tpu/benchproto.py``, shared by the port's tools
-(``scripts/torch_trace_rate.py``, ``scripts/torch_hw_rates.py``) so that
-a protocol change lands in one place.
+(``scripts/torch_*.py``) so that a protocol change lands in one place.
 
 The workload and the window are the JAX package's (``bench_config`` and
 ``auto_reps`` are copies, held to the originals by the tests).  The timing

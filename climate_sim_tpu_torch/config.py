@@ -163,7 +163,7 @@ class SimConfig:
     strict_reference_compat: bool = False
     diagnostics_every: int = 0  # 0 = off; else print min/max/mean/L2 cadence
     debug_nans: bool = False
-    profile_dir: str = ""  # non-empty: capture a jax.profiler trace there
+    profile_dir: str = ""  # non-empty: a torch.profiler trace of the timed loop there
     max_devices: int = 0  # 0 = all visible devices; else use the first N
     # Sharded passes: split interior/edge-band kernels so halo ppermutes
     # overlap interior compute (latency hiding for small tiles).

@@ -32,6 +32,8 @@ import time
 from dataclasses import dataclass
 from typing import List
 
+from ..runtime import tracing
+
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
@@ -178,16 +180,20 @@ def _build(sources: List[str], path: str):
 @functools.lru_cache(maxsize=1)
 def load_library() -> KernelLibrary:
     """Build the library if no build of the current sources exists, then
-    load it.  Raises on a missing ``nvcc`` or a failed build."""
-    sources = kernel_sources()
-    digest = sources_hash(sources + kernel_headers())
-    path = os.path.join(BUILD_DIR, f"libclimate_kernels_{digest}.so")
-    built, seconds, log = False, 0.0, ""
-    if not os.path.exists(path):
-        with build_lock():
-            if not os.path.exists(path):  # else another process built it meanwhile
-                seconds, log = _build(sources, path)
-                built = True
-    lib = ctypes.CDLL(path)
-    _declare(lib)
-    return KernelLibrary(lib=lib, path=path, built=built, seconds=seconds, log=log)
+    load it.  Raises on a missing ``nvcc`` or a failed build.  The span
+    ``climate.library`` covers it all; its note is ``built`` or
+    ``loaded``."""
+    with tracing.span("climate.library") as span:
+        sources = kernel_sources()
+        digest = sources_hash(sources + kernel_headers())
+        path = os.path.join(BUILD_DIR, f"libclimate_kernels_{digest}.so")
+        built, seconds, log = False, 0.0, ""
+        if not os.path.exists(path):
+            with build_lock():
+                if not os.path.exists(path):  # else another process built it meanwhile
+                    seconds, log = _build(sources, path)
+                    built = True
+        span.note("built" if built else "loaded")
+        lib = ctypes.CDLL(path)
+        _declare(lib)
+        return KernelLibrary(lib=lib, path=path, built=built, seconds=seconds, log=log)

@@ -26,6 +26,7 @@ from typing import Callable, List, NamedTuple
 import torch
 
 from ..config import BCType, SimConfig
+from ..runtime import tracing
 from .boundary import pad_with_ghosts
 
 # Side codes of the C interface (csrc/multistep_stencil.cu).
@@ -207,8 +208,14 @@ def multistep_kernel_step(
 
     A CUDA tensor launches the kernel on the current stream into a fresh
     output (the input is never written) or raises; a CPU tensor takes the
-    plain version.  ``multistep_kernel_step.launches`` counts the launches.
+    plain version.  ``multistep_kernel_step.launches`` counts the launches;
+    while tracing is on, the counter ``k1.host_ns`` adds the host time of
+    each launch from entry to the C call (which blocks while the launch
+    queue is full, so it is left out).
     """
+    traced = tracing.ON
+    if traced:
+        entered = tracing.clock()
     _check(u, cfg, k)
     if u.device.type == "cpu":
         return multistep_pass_plain(u, cfg, dt, k)
@@ -226,10 +233,13 @@ def multistep_kernel_step(
     geo = band_geometry(cfg.ny, cfg.nx, k)
     out = torch.empty_like(u)
     with on_device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        if traced:
+            tracing.add("k1.host_ns", tracing.clock() - entered)
         err = lib.climate_multistep_stencil(
             u.data_ptr(), out.data_ptr(), cfg.ny, cfg.nx, k,
             _DTYPE_CODES[u.dtype], *weights, *fixes, 0.0, geo.width,
-            geo.rows, torch.cuda.current_stream(u.device).cuda_stream,
+            geo.rows, stream,
         )
     if err:
         msg = lib.climate_cuda_error_string(err).decode()

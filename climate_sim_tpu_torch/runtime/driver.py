@@ -5,6 +5,11 @@ Flow: config -> CFL clamp with warning -> banner -> IC -> IC min/max log ->
 open snapshot file -> time loop with pre-update snapshots at
 ``n % out_every == 0`` -> ``timing: total_max=<s> s, worst_avg_step=<s> s``
 (greppable by the benchmark harness, reference: run_benchmark.sh:34-39).
+Each phase is a span of :mod:`.tracing` (``climate.call``, ``.prepare``,
+``.ic_stats``, ``.capture``, ``.warmup``, ``.loop``, ``.finish``), recorded
+inside ``tracing.collect()`` and with ``profile_dir``, whose
+``torch.profiler`` trace then carries them as annotations beside the
+card's kernels; ``climate.loop`` is the interval ``timing:`` measures.
 
 The time loop is chunked: each span between snapshot points is dispatched
 as pieces of at most 256 steps, each piece a chain of kernel passes (or of
@@ -61,6 +66,7 @@ a TPU layout limit or measurement that does not carry over:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import sys
@@ -95,7 +101,7 @@ from ..parallel.mesh import (
     local_windows,
     make_mesh,
 )
-from . import distributed, graphs
+from . import distributed, graphs, tracing
 
 # Longest piece of a span dispatched as one chunk program.  Kept from the
 # JAX package (driver.py:521-529) so both packages run the same pass
@@ -279,7 +285,9 @@ def _start_profiler(cfg: SimConfig, device: torch.device, world: int):
     """None without ``cfg.profile_dir``; else a started ``torch.profiler``
     in its warm-up step (traced, then dropped), whose next step, ended by
     ``stop()``, is written to ``trace.json`` (``trace_rank<r>.json`` on
-    rank r of several) under the directory."""
+    rank r of several) under the directory.  The trace carries the
+    program's spans (:mod:`.tracing`, on for such a call) as
+    ``user_annotation`` events: ``climate.loop`` around the timed loop."""
     if not cfg.profile_dir:
         return None
     _log(f"profiler trace -> {cfg.profile_dir}")
@@ -356,62 +364,63 @@ def prepare(cfg: SimConfig, devices=None):
     process's tiles of the mesh's grid (carrier tiles on the carrier path,
     whose ``advance.extract`` gives the true extent).
     """
-    distributed.maybe_init_distributed(cfg)
-    devs = resolve_devices(devices)
-    dtype = DTYPES[cfg.precision]
+    with tracing.span("climate.prepare"):
+        distributed.maybe_init_distributed(cfg)
+        devs = resolve_devices(devices)
+        dtype = DTYPES[cfg.precision]
 
-    dt, limit, clamped = clamp_dt(cfg.dt, cfg.dx, cfg.dy, cfg.vx, cfg.vy, cfg.D)
-    if clamped:
-        # rank-0 warning, like the reference (main.cpp:44-47)
-        _warn(
-            f"[warn] dt={cfg.dt:g} exceeds stability limit {limit:g}"
-            f" -> clamping to dt={dt:g}"
-        )
-    mesh = _make_run_mesh(cfg, devs)
-    cfg = resolve_auto_policies(cfg)
-    if mesh is None:
-        advance = build_single_device_advance(cfg, dt, devs[0])
-    else:
-        advance = _mesh_advance(cfg, mesh, dt, devs[0])
-    if cfg.precision == "bf16":
-        # bf16 storage mode rounds once per pass of the advance actually
-        # chosen: once per k-step kernel pass, once per step on the plain
-        # and per-step paths.
-        # The error vs f32 grows about linearly in that count (the JAX
-        # package measured ~1e-3 relative per event), so warn past ~5%.
-        events = run_pass_count(cfg, advance)
-        est = 1e-3 * events
-        if est > 0.05:
+        dt, limit, clamped = clamp_dt(cfg.dt, cfg.dx, cfg.dy, cfg.vx, cfg.vy, cfg.D)
+        if clamped:
+            # rank-0 warning, like the reference (main.cpp:44-47)
             _warn(
-                f"[warn] precision=bf16 over {cfg.steps} steps"
-                f" (~{events:.0f} rounding events): estimated relative"
-                f" error vs f32 ~{est:.2g} (~1e-3/event, linear growth)."
-                "  bf16 storage mode is fit for short-horizon/memory-"
-                "constrained runs; use precision=f32 for long-horizon"
-                " accuracy"
+                f"[warn] dt={cfg.dt:g} exceeds stability limit {limit:g}"
+                f" -> clamping to dt={dt:g}"
             )
-    comb = combined_dt_limit(cfg.dx, cfg.dy, cfg.vx, cfg.vy, cfg.D)
-    if dt > comb * (1.0 + 1e-12):
-        # Advisory only: the clamp keeps the reference's envelope, which is
-        # insufficient when advection AND diffusion are active.
-        _warn(
-            f"[warn] dt={dt:g} exceeds the COMBINED advection+diffusion"
-            f" stability bound {comb:g}; the run may diverge"
-            " (the reference's clamp envelope does not cover this case)"
-        )
-    if mesh is None:
-        u0 = apply_initial_condition(cfg, dtype, devs[0]).contiguous()
-    else:
-        # Per tile, so that no rank builds or reads the (ny, nx) field; a
-        # failure (a bad IC file) raises on every rank together.
-        err = None
-        try:
-            u0 = device_initial_condition(cfg, dtype, mesh,
-                                          getattr(advance, "embed_from", None))
-        except Exception as e:
-            err = e
-        distributed.raise_together(err, "the initial condition")
-    return u0, advance, mesh, dt, clamped
+        mesh = _make_run_mesh(cfg, devs)
+        cfg = resolve_auto_policies(cfg)
+        if mesh is None:
+            advance = build_single_device_advance(cfg, dt, devs[0])
+        else:
+            advance = _mesh_advance(cfg, mesh, dt, devs[0])
+        if cfg.precision == "bf16":
+            # bf16 storage mode rounds once per pass of the advance actually
+            # chosen: once per k-step kernel pass, once per step on the plain
+            # and per-step paths.
+            # The error vs f32 grows about linearly in that count (the JAX
+            # package measured ~1e-3 relative per event), so warn past ~5%.
+            events = run_pass_count(cfg, advance)
+            est = 1e-3 * events
+            if est > 0.05:
+                _warn(
+                    f"[warn] precision=bf16 over {cfg.steps} steps"
+                    f" (~{events:.0f} rounding events): estimated relative"
+                    f" error vs f32 ~{est:.2g} (~1e-3/event, linear growth)."
+                    "  bf16 storage mode is fit for short-horizon/memory-"
+                    "constrained runs; use precision=f32 for long-horizon"
+                    " accuracy"
+                )
+        comb = combined_dt_limit(cfg.dx, cfg.dy, cfg.vx, cfg.vy, cfg.D)
+        if dt > comb * (1.0 + 1e-12):
+            # Advisory only: the clamp keeps the reference's envelope, which is
+            # insufficient when advection AND diffusion are active.
+            _warn(
+                f"[warn] dt={dt:g} exceeds the COMBINED advection+diffusion"
+                f" stability bound {comb:g}; the run may diverge"
+                " (the reference's clamp envelope does not cover this case)"
+            )
+        if mesh is None:
+            u0 = apply_initial_condition(cfg, dtype, devs[0]).contiguous()
+        else:
+            # Per tile, so that no rank builds or reads the (ny, nx) field; a
+            # failure (a bad IC file) raises on every rank together.
+            err = None
+            try:
+                u0 = device_initial_condition(cfg, dtype, mesh,
+                                              getattr(advance, "embed_from", None))
+            except Exception as e:
+                err = e
+            distributed.raise_together(err, "the initial condition")
+        return u0, advance, mesh, dt, clamped
 
 
 def _view_offsets(advance, mesh, cfg: SimConfig) -> Dict[Tuple[int, int], Tuple[int, int]]:
@@ -493,7 +502,15 @@ def run_simulation(
 ) -> RunResult:
     """Execute a full run (the reference main loop, main.cpp:93-133) on
     ``devices`` (a list of torch devices, or one; default every visible
-    CUDA device, or this rank's card in a multi-process run)."""
+    CUDA device, or this rank's card in a multi-process run).  The call is
+    the span ``climate.call``; with ``profile_dir`` tracing is on for it,
+    so that the profiler's trace carries the program's spans."""
+    with tracing.collect() if cfg.profile_dir else contextlib.nullcontext(), \
+            tracing.span("climate.call"):
+        return _run(cfg, devices, write_output)
+
+
+def _run(cfg: SimConfig, devices, write_output: bool) -> RunResult:
     u, advance, mesh, dt, clamped = prepare(cfg, devices)
     used = mesh.distinct_devices() if mesh is not None else [u.device]
     device = used[0] if used else torch.device("cpu")
@@ -532,7 +549,8 @@ def run_simulation(
 
     # IC sanity log (a 4-scalar fetch); also surfaces a bad IC before the
     # snapshot file is created.
-    ic_stats = _read_stats(_field_stats(view(u)), points)
+    with tracing.span("climate.ic_stats"):
+        ic_stats = _read_stats(_field_stats(view(u)), points)
     _log(f"IC min/max: {ic_stats[0]:g} / {ic_stats[1]:g}")
 
     copier = _HostCopier(used)
@@ -545,18 +563,19 @@ def run_simulation(
     # With ``profile_dir`` the profiler starts before that pass, in a
     # warm-up step that is traced and dropped, so the trace holds the timed
     # loop alone, without the profiler's start-up cost.
-    for kk in chunk_lengths(cfg):
-        chunk = advance(kk)
-        if isinstance(chunk, graphs.GraphedChunk):
-            done = chunk.capture(u)
-            added = ", ".join(f"{d} {n / 2**20:+.1f} MiB" for d, n in done.memory.items())
-            _log(f"  graph: {kk}-step chunk captured in {done.seconds:.3f} s"
-                 f" over {len(mesh.distinct_devices())} card(s); memory added: {added or 'none'}")
+    with tracing.span("climate.capture"):
+        for kk in chunk_lengths(cfg):
+            chunk = advance(kk)
+            if isinstance(chunk, graphs.GraphedChunk):
+                done = chunk.capture(u)
+                added = ", ".join(f"{d} {n / 2**20:+.1f} MiB" for d, n in done.memory.items())
+                _log(f"  graph: {kk}-step chunk captured in {done.seconds:.3f} s over"
+                     f" {len(mesh.distinct_devices())} card(s); memory added: {added or 'none'}")
     profiler = _start_profiler(cfg, device, world)
     warmup_passes = advance.pass_count(1)
-    with graphs.disable_graphs():
+    with tracing.span("climate.warmup"), graphs.disable_graphs():
         advance(1)(u)
-    _synchronize(used)
+        _synchronize(used)
     if profiler is not None:
         profiler.step()
     timed_passes = run_pass_count(cfg, advance)
@@ -583,59 +602,69 @@ def run_simulation(
         snapshots = 0
         diag_pending = []  # (step, on-device stats vector): fetched AFTER timing
         n = 0
-        t0 = time.perf_counter()
-        for k in span_lengths(cfg):
-            if n % cfg.out_every == 0 and writer is not None:
-                u_snap, ready = view(u), copier.mark()
-                u = dispatch_span(u, k)  # launch the next span before the copy
-                emit(u_snap, ready)
-                del u_snap
-                snapshots += 1
-            else:
-                u = dispatch_span(u, k)
-            if cfg.diagnostics_every and (n // cfg.out_every) % max(1, cfg.diagnostics_every) == 0:
-                # Reductions launch now and are fetched after the timed loop.
-                diag_pending.append((n + k, _field_stats(view(u))))
-            if cfg.debug_nans:
-                nan = any(bool(torch.isnan(t).any()) for t in _local(view(u)))
-                # Every rank stops together, so no peer waits in an exchange.
-                if distributed.reduce([float(nan)], "max")[0]:
-                    raise FloatingPointError(f"NaN in the field after step {n + k}")
-            n += k
-        _synchronize(used)
-        total = time.perf_counter() - t0
+        # ``timing:`` and the span share their two clock readings.
+        with tracing.span("climate.loop") as loop:
+            t0 = time.perf_counter_ns()
+            for k in span_lengths(cfg):
+                if n % cfg.out_every == 0 and writer is not None:
+                    u_snap, ready = view(u), copier.mark()
+                    u = dispatch_span(u, k)  # launch the next span before the copy
+                    emit(u_snap, ready)
+                    del u_snap
+                    snapshots += 1
+                else:
+                    u = dispatch_span(u, k)
+                if cfg.diagnostics_every and (n // cfg.out_every) % max(1, cfg.diagnostics_every) == 0:
+                    # Reductions launch now and are fetched after the timed loop.
+                    diag_pending.append((n + k, _field_stats(view(u))))
+                if cfg.debug_nans:
+                    nan = any(bool(torch.isnan(t).any()) for t in _local(view(u)))
+                    # Every rank stops together, so no peer waits in an exchange.
+                    if distributed.reduce([float(nan)], "max")[0]:
+                        raise FloatingPointError(f"NaN in the field after step {n + k}")
+                n += k
+            _synchronize(used)
+            t1 = time.perf_counter_ns()
+            loop.at(t0, t1)
+        total = (t1 - t0) / 1e9
         if profiler is not None:
             profiler.stop()  # writes the trace
 
-        for step, vec in diag_pending:
-            mn, mx, mean, l2 = _read_stats(vec, points)
-            _log(f"diag: step={step} min={mn:.6g} max={mx:.6g} mean={mean:.6g} l2={l2:.6g}")
+        with tracing.span("climate.finish"):
+            for step, vec in diag_pending:
+                mn, mx, mean, l2 = _read_stats(vec, points)
+                _log(f"diag: step={step} min={mn:.6g} max={mx:.6g} mean={mean:.6g} l2={l2:.6g}")
 
-        if cfg.write_final and writer is not None:
-            emit(view(u), copier.mark())
-            snapshots += 1
+            if cfg.write_final and writer is not None:
+                emit(view(u), copier.mark())
+                snapshots += 1
+            # Closed inside the span; the ``finally`` below closes a writer
+            # only when something raised before this line.
+            closing, writer = writer, None
+            if closing is not None:
+                closing.close()
+
+            # MPI_Reduce(MAX) analogue (main.cpp:127-128): the slowest rank's wall.
+            total = float(distributed.reduce([total], "max")[0])
+            avg_step = total / max(1, cfg.steps)
+            _log(f"passes: timed={timed_passes} warmup={warmup_passes}")
+            _log(f"timing: total_max={total:g} s, worst_avg_step={avg_step:g} s")
+            # Per chip = per DISTINCT card, over every rank: a 2x2 mesh on one
+            # card, or four ranks sharing it, is one chip, not four.
+            pts = points * cfg.steps / max(total, 1e-12)
+            chips = mesh.chip_count() if mesh is not None else 1
+            _log(f"throughput: {pts / 1e6:.1f} Mpoint/s total, "
+                 f"{pts / 1e6 / chips:.1f} Mpoint/s/chip")
+
+            if mesh is None:
+                final = u
+            elif world > 1:
+                final = view(u)
+            else:
+                final = gather_field(view(u))
     finally:
         if writer is not None:
             writer.close()
-
-    # MPI_Reduce(MAX) analogue (main.cpp:127-128): the slowest rank's wall.
-    total = float(distributed.reduce([total], "max")[0])
-    avg_step = total / max(1, cfg.steps)
-    _log(f"passes: timed={timed_passes} warmup={warmup_passes}")
-    _log(f"timing: total_max={total:g} s, worst_avg_step={avg_step:g} s")
-    # Per chip = per DISTINCT card, over every rank: a 2x2 mesh on one
-    # card, or four ranks sharing it, is one chip, not four.
-    pts = points * cfg.steps / max(total, 1e-12)
-    chips = mesh.chip_count() if mesh is not None else 1
-    _log(f"throughput: {pts / 1e6:.1f} Mpoint/s total, "
-         f"{pts / 1e6 / chips:.1f} Mpoint/s/chip")
-
-    if mesh is None:
-        final = u
-    elif world > 1:
-        final = view(u)
-    else:
-        final = gather_field(view(u))
     return RunResult(
         u=final,
         total_time=total,

@@ -12,8 +12,6 @@
   control's split, a real CPU sweep, and no CPU run for ``--platform=cuda``;
 * ``scripts/torch_hw_conformance.py``: a small CPU run, and a wrong and a
   raising path each failing it;
-* ``scripts/torch_trace_rate.py``: ``analyze`` on synthetic traces, and a
-  small CPU capture;
 * ``scripts/torch_hw_rates.py``: the band logic on synthetic rates, and a
   small CPU run;
 * every tool imports no JAX: each is imported, and its CPU path run, with
@@ -26,7 +24,6 @@ rather than run on the CPU, which the ``no_card`` fixture's tests check.
 import contextlib
 import importlib.util
 import io
-import json
 import os
 import struct
 import subprocess
@@ -49,7 +46,7 @@ from climate_sim_tpu_torch.runtime import cli
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = ("torch_generate_ic", "torch_run_benchmark", "torch_hw_conformance",
-         "torch_trace_rate", "torch_hw_rates")
+         "torch_hw_rates")
 
 
 def load_script(name):
@@ -379,113 +376,6 @@ def test_conformance_without_a_card_fails(no_card):
     assert load_script("torch_hw_conformance").main([]) != 0
 
 
-# -------------------------------------------------------- torch_trace_rate
-
-
-def _chrome(events):
-    return {"traceEvents": [{"ph": "X", **e} for e in events] + [{"ph": "M", "name": "meta"}]}
-
-
-def test_analyze_reads_chunks_from_kernel_events(tmp_path):
-    """Three chunks of two kernels each (us): 100 us of kernels a chunk
-    over spans 0-110, 112-222 and 230-340, so an 8 us longest gap; the
-    operator events are ignored when kernels exist."""
-    tr = load_script("torch_trace_rate")
-    kernels = []
-    for start in (0.0, 112.0, 230.0):
-        kernels += [{"cat": "kernel", "name": "band_kernel", "ts": start, "dur": 60.0},
-                    {"cat": "kernel", "name": "other", "ts": start + 70.0, "dur": 40.0}]
-    ops = [{"cat": "cpu_op", "name": "aten::empty", "ts": 1.0, "dur": 500.0, "tid": 1}]
-    path = tmp_path / "trace.json"
-    path.write_text(json.dumps(_chrome(list(reversed(kernels)) + ops)))
-    r = tr.analyze(str(tmp_path), 100, 50, 10, 3)
-    assert r["program"] == "band_kernel" and r["events"] == "kernel"
-    assert r["n_chunks"] == 3 and r["events_per_chunk"] == 2
-    assert r["ms_per_chunk"] == pytest.approx(0.100)
-    assert r["device_gpts"] == pytest.approx(100 * 50 * 10 / 100e-6 / 1e9)
-    assert r["max_gap_ms"] == pytest.approx(0.008)
-    assert r["span_ms_per_chunk"] == pytest.approx(0.110)
-    assert r["busy_share"] == pytest.approx(100 / 110)
-    with pytest.raises(ValueError):
-        tr.analyze(str(path), 100, 50, 10, 4)
-
-
-def test_analyze_takes_top_level_operators_without_kernels(tmp_path):
-    tr = load_script("torch_trace_rate")
-    ops = []
-    for start in (0.0, 50.0):
-        ops += [{"cat": "cpu_op", "name": "aten::mul", "ts": start, "dur": 20.0, "tid": 7},
-                {"cat": "cpu_op", "name": "aten::empty", "ts": start + 1.0, "dur": 2.0, "tid": 7},
-                {"cat": "cpu_op", "name": "aten::add", "ts": start + 25.0, "dur": 15.0, "tid": 7}]
-    path = tmp_path / "t.json"
-    path.write_text(json.dumps(_chrome(ops)))
-    r = tr.analyze(str(path), 10, 10, 4, 2, device="cpu")
-    assert r["events"] == "cpu_op" and r["events_per_chunk"] == 2
-    assert r["ms_per_chunk"] == pytest.approx(0.035)  # the nested aten::empty not counted
-    assert r["span_ms_per_chunk"] == pytest.approx(0.040)
-    assert r["max_gap_ms"] == pytest.approx(0.010)
-
-
-def test_analyze_refuses_a_card_trace_without_kernels(tmp_path):
-    """A card's trace whose kernels were not traced is an error, never a
-    rate read from the host's operator events."""
-    tr = load_script("torch_trace_rate")
-    ops = [{"cat": "cpu_op", "name": "aten::mul", "ts": t, "dur": 20.0, "tid": 7}
-           for t in (0.0, 50.0)]
-    path = tmp_path / "t.json"
-    path.write_text(json.dumps(_chrome(ops)))
-    with pytest.raises(ValueError, match="no kernel events"):
-        tr.analyze(str(path), 10, 10, 4, 2)
-    with pytest.raises(ValueError, match="no kernel events"):
-        tr.main(["--analyze_only", str(path), "--reps=2"])
-
-
-def test_trace_rate_captures_on_the_cpu(tmp_path):
-    rc, out = run_main(load_script("torch_trace_rate").main,
-                       ["--device=cpu", "--nx=64", "--ny=64", "--chunk=8", "--reps=3",
-                        f"--trace_dir={tmp_path}"])
-    assert rc == 0
-    lines = out.strip().splitlines()[-5:]
-    assert lines[0].startswith("program: aten::") and "chunks: 3" in lines[0]
-    assert lines[1].startswith("ms/chunk(8 steps): ") and lines[2].startswith("device rate (kernel time): ")
-    assert lines[3].startswith("max inter-chunk gap: ")
-    assert lines[4].startswith("chunk span: ") and lines[4].endswith("% of it)")
-    assert (tmp_path / "trace.json").exists()
-
-
-@pytest.mark.parametrize("lost", [1, 2, 3])
-def test_trace_rate_takes_again_a_trace_that_lost_launches(lost, tmp_path, monkeypatch,
-                                                          capsys):
-    """A trace whose stencil kernel events fall short of the launches its
-    chunks counted is taken again, up to three times in all; a third such
-    trace raises."""
-    tr = load_script("torch_trace_rate")
-    tries = []
-    real = tr.capture
-
-    def capture(*args, **kw):
-        real(*args, **kw)
-        tries.append(1)
-        return 39
-
-    monkeypatch.setattr(tr, "capture", capture)
-    monkeypatch.setattr(tr, "stencil_events", lambda path: 39 - (len(tries) <= lost))
-    argv = ["--device=cpu", "--nx=64", "--ny=64", "--chunk=8", "--reps=3",
-            f"--trace_dir={tmp_path}"]
-    if lost < tr.TRIES:
-        rc, out = run_main(tr.main, argv)
-        assert rc == 0 and "chunks: 3" in out
-    else:
-        with pytest.raises(ValueError, match="3 traces lost stencil launches"):
-            run_main(tr.main, argv)
-    assert len(tries) == min(lost + 1, tr.TRIES)
-    assert capsys.readouterr().err.count("38 of the 39 stencil launches") == lost
-
-
-def test_trace_rate_without_a_card_fails(no_card):
-    assert load_script("torch_trace_rate").main(["--nx=64", "--ny=64"]) != 0
-
-
 # ---------------------------------------------------------- torch_hw_rates
 
 
@@ -555,7 +445,6 @@ def test_no_tool_imports_jax(tmp_path):
             ("torch_generate_ic", ["--nx", "8", "--ny", "8", "--out", tmp + "/ic.nc"]),
             ("torch_hw_conformance", ["--device=cpu", "--nx=64", "--ny=32", "--steps=2",
                                       "--grid-scale=16"]),
-            ("torch_trace_rate", ["--device=cpu", "--nx=32", "--ny=32", "--chunk=2"]),
             ("torch_hw_rates", ["--device=cpu", "--nx=64", "--ny=64", "--chunk=2", "--reps=1", "--trials=1"]),
         ]
         for name, argv in runs:
