@@ -244,30 +244,34 @@ _SOURCES = {"WrapSource": "K1", "RegionSource": "K2/K3", "SlabSource": "K4/K5"}
 
 def kernel_resources(log):
     """Per kernel instantiation in ptxas' -v output: (kernels, dtype, level
-    count, registers, spill store bytes, spill load bytes)."""
+    count, columns a thread, registers, stack frame bytes, spill store
+    bytes, spill load bytes)."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name, spills = m.group(1), (0, 0)
+            name, frame = m.group(1), (0, 0, 0)
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores,"
+                      r" (\d+) bytes spill loads", line)
         if m and name:
-            spills = (int(m.group(1)), int(m.group(2)))
+            frame = tuple(int(v) for v in m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            k = re.search(r"band_kernelI(13__nv_bfloat16f|ff|dd)Li(\d+)E.*?"
+            k = re.search(r"band_kernelI(13__nv_bfloat16f|ff|dd)Li(\d+)ELi(\d+)E.*?"
                           r"(WrapSource|RegionSource|SlabSource)", name)
             if k:
-                out.append((_SOURCES[k.group(3)], _DTYPES[k.group(1)], int(k.group(2)),
-                            int(m.group(1)), *spills))
+                out.append((_SOURCES[k.group(4)], _DTYPES[k.group(1)], int(k.group(2)),
+                            int(k.group(3)), int(m.group(1)), *frame))
             name = None
     return out
 
 
 def phase_build():
     """Build (or find) the kernels' library; print each instantiation's
-    registers and spills, and fail on a spill in float32 or bfloat16."""
+    registers, stack frame and spills, and fail on a spill in float32 or
+    bfloat16 or in any instantiation of K1's wide body (several columns a
+    thread)."""
     from climate_sim_tpu_torch.ops._build import load_library
 
     t0 = time.perf_counter()
@@ -283,14 +287,15 @@ def phase_build():
     native.load_library()
     print(f"[build] {os.path.relpath(native.library_path(), HERE)}: the native snapshot"
           " writer loaded")
-    for kern, dtype, levels, regs, st, ld in sorted(res):
+    for kern, dtype, levels, cols, regs, frame, st, ld in sorted(res):
         spill = f"spills {st} B stored, {ld} B loaded" if st or ld else "no spills"
-        print(f"[build] {kern} {dtype} {levels} levels: {regs} registers, {spill}")
+        print(f"[build] {kern} {dtype} {levels} levels x{cols} columns: {regs} registers,"
+              f" {frame} B stack frame, {spill}")
     if kl.built and not res:
         fail("no kernel resources in the build log")
-    bad = [r for r in res if r[1] != "float64" and (r[4] or r[5])]
+    bad = [r for r in res if (r[1] != "float64" or r[3] > 1) and (r[6] or r[7])]
     if bad:
-        fail(f"spills in float32/bfloat16 kernels: {bad}")
+        fail(f"spills in float32/bfloat16 or wide kernels: {bad}")
 
 
 def make_cfg(nx, ny, bc_class, **kw):
@@ -865,10 +870,11 @@ def phase_fuzz(torch, device, seed=FUZZ_SEED):
         k = rng.randint(1, cs.MAX_STEPS_PER_PASS)
         ny = rng.randint(4, FUZZ_MAX_SIDE)
         nx = rng.randint(4, FUZZ_MAX_SIDE)
+        dtype = rng.choice(dtypes)
         if rng.random() < 0.25:  # one off a multiple of the band's output width
-            out_w = cs.band_geometry(ny, nx, k).width - 2 * k
+            out_w = cs.k1_geometry(ny, nx, k, dtype).width - 2 * k
             nx = min(FUZZ_MAX_SIDE, max(4, out_w * rng.randint(1, 4) + rng.choice((-1, 1))))
-        cfg, dtype = fuzz_config(rng, nx, ny), rng.choice(dtypes)
+        cfg = fuzz_config(rng, nx, ny)
         u = field(rng, ny, nx, dtype)
         check("K1", f"{nx}x{ny} k={k} {dtype} bc={cfg.bc} compat={cfg.strict_reference_compat}",
               lambda: cs.multistep_kernel_step(u, cfg, cfg.dt, k),

@@ -14,14 +14,24 @@
 // memory sees one read and one write every k steps, and the sub-steps on
 // chip become the bound: their shared-memory accesses, their issue slots
 // and the barriers between rows.  The core (stencil_core.cuh) streams each
-// column band down its rows with the k levels pipelined one row apart: the
-// vertical operands stay in registers, only xm and xp go through shared
-// memory (one store and two loads per update, against five loads, a byte
-// load and a store in a 2D shared window), one barrier per row for all k
+// column band down its rows with the k levels pipelined one row apart:
+// the vertical operands stay in registers, one barrier per row for all k
 // levels, rows loaded AHEAD rows early with cp.async, and the redundant
 // halo work is about band_w/(band_w-2k) x (seg+2k)/seg instead of a
-// window's shrinking rim.  wgmma and TMA are not used: the update is 9
-// flops a cell, and TMA fills out-of-bounds with zeros, not wrapped rows.
+// window's shrinking rim.  Up to 8 steps a pass K1 runs the core's wide
+// body: each thread holds 4 adjacent columns (2 in f64), their x
+// neighbours come from its own registers, the lanes beside it (shuffles)
+// and, at a warp's ends, a small exchange row, so the shared-memory pipe
+// that bound the one-column body (one store and two loads an update)
+// carries a few accesses per 4 x k updates, and each level has 4
+// independent FMA chains.  What bounds the wide body is how many warps an
+// SM holds (its registers allow 12) against the latency of each row's
+// chain through the k levels; the wrapper cuts the field into one wave of
+// such blocks, with short segments where the field is too small to fill
+// the SMs (ops/cuda_stencil.py::k1_geometry).  Deeper passes run the
+// one-column body (band_w threads of one column each).  wgmma and TMA are
+// not used: the update is 9 flops a cell, and TMA fills out-of-bounds
+// with zeros, not wrapped rows.
 //
 // The edge rule.  Each window cell knows its wrapped global coordinate.
 // Its neighbour in one direction is the window neighbour, except when the
@@ -68,6 +78,13 @@ struct WrapSource {
   __device__ const T* at(int r, int x) const {
     return p + static_cast<long long>(r) * nx + x;
   }
+  // Columns g .. g + n - 1 lie side by side, the first aligned to n
+  // elements in every row: one copy of n elements brings them.
+  __device__ bool contiguous(int g, int n) const {
+    const int x = column(g);
+    return x + n <= nx && nx % n == 0 &&
+           reinterpret_cast<uintptr_t>(p + x) % (n * sizeof(T)) == 0;
+  }
 };
 
 }  // namespace
@@ -76,8 +93,9 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = float64, 2 = bfloat16 (storage; f32 arithmetic).
 // fix_*: 0 live periodic, 1 Dirichlet, 2 Neumann, 3 compat zero.
-// band_w, seg_rows: the band geometry (threads a block, output rows a
-// segment) from ops/cuda_stencil.py::band_geometry.
+// band_w, seg_rows: the band geometry (window columns a block, output rows
+// a segment) from ops/cuda_stencil.py::k1_geometry, which also knows the
+// columns a thread that k and dtype give (stencil_core.cuh::launch_band).
 // Returns the cudaError_t of the launch (0 on success).  ``out`` must not
 // alias ``in``.
 int climate_multistep_stencil(const void* in, void* out, int ny, int nx,
@@ -97,7 +115,7 @@ int climate_multistep_stencil(const void* in, void* out, int ny, int nx,
                     fix_bottom, fix_top, bc_value)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return dispatch(dtype, p, out, stream, [&](auto tag) {
+  return dispatch<true>(dtype, p, out, stream, [&](auto tag) {
     using T = typename decltype(tag)::type;
     return WrapSource<T>{static_cast<const T*>(in), ny, nx,
                          {fix_left, fix_right, fix_bottom, fix_top}};

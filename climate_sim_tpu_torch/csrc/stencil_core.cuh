@@ -59,6 +59,39 @@
 //
 // bf16 is a storage type: loads widen to f32, the sub-steps run in f32,
 // and the result rounds to bf16 once, on the write.  f64 runs in f64.
+//
+// Several columns a thread (K1's wide body, stream_band_wide).  Each
+// thread owns CPT adjacent window columns of every level (4 in f32 and
+// bf16, 2 in f64, whose registers are twice as wide), so a band is
+// CPT x threads columns and the pipeline above runs with CPT independent
+// FMA chains a level.  Only a thread's two outer columns cross threads:
+// their x neighbours come from the lanes beside it by shuffle, and at a
+// warp's ends from a small exchange row a level and parity (each warp's
+// first and last column, written one row earlier, read after the row's
+// barrier).  A row takes all its shuffles and exchange reads first, so
+// their latency stays off the levels' chain; per CPT x k updates a thread
+// that is two shuffles and a predicated shared load and store a level,
+// against three shared accesses an update in the one-column body.  Rows
+// arrive as above, one 16-byte cp.async a thread where its columns are
+// 16 aligned bytes of the field (f32, f64), else a copy an element.  The
+// edge rule is the same, but decided per warp: a fixed x side at a
+// thread's first or last column only replaces that outer neighbour (one
+// select a level), and only the warps with a fixed side's row in their
+// block or at an inner column run the copy of the loop with the selects;
+// the two copies meet at one barrier a row (barrier.sync without
+// .aligned).  Its loop body covers three rows, the registers' rotation;
+// ring slot and parity step at run time, which keeps the loop small
+// enough for the instruction cache (a six-row body of four columns ran
+// at less than half the speed).  The launch bounds hold it to 170
+// registers, so three blocks of 128 threads (12 warps) fit an SM; the
+// wrapper cuts the field into one wave of blocks
+// (ops/cuda_stencil.py::k1_geometry), since on the H100 the warps an SM
+// holds decide its speed more than the halo that taller segments and
+// wider bands save, and on a field too small to fill the SMs each row's
+// chain through the levels does.  K1 runs it up to FAST_MAX levels;
+// deeper passes and K2-K5 (whose sources, a padded region or a tile with
+// its halo slabs, have other column layouts, and K3 bands k columns
+// wide) run the one-column body.
 
 #pragma once
 
@@ -66,6 +99,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 
 namespace climate {
@@ -79,6 +113,16 @@ constexpr int RING = AHEAD + 2;
 // edge threads read as xm / xp.  Fixed, so every shared address in the
 // loop is a register plus an immediate, whatever the band's width.
 constexpr int STRIDE = MAX_BAND + 2;
+// K1's wide body (stream_band_wide): window columns a thread in f32 and
+// bf16, and in f64 (whose registers are twice as wide); threads of a block
+// at most; and the blocks of that size an SM must hold: ptxas keeps a wide
+// instantiation to 65536 / (3 x 128) = 170 registers, so each runs 12
+// warps an SM.  ops/cuda_stencil.py reads these `constexpr int` lines (and
+// MAX_BAND, FAST_MAX) for its band geometry.
+constexpr int WIDE_COLS = 4;
+constexpr int WIDE_COLS_F64 = 2;
+constexpr int WIDE_THREADS = 128;
+constexpr int WIDE_MIN_BLOCKS = 3;
 
 // Side codes, in the order left, right, bottom, top.
 constexpr int FIX_NONE = 0;       // live periodic: read the neighbour
@@ -125,9 +169,15 @@ inline bool make_stencil(Stencil* s, int k, double wc, double wxm, double wxp,
 }
 
 // The band geometry the wrapper chose; false when the kernel cannot run it.
-inline bool band_ok(int band_w, int seg_rows, int k) {
-  return band_w >= 32 && band_w <= MAX_BAND && band_w % 32 == 0 &&
-         band_w > 2 * k && seg_rows >= 1;
+// One column a thread: at most MAX_BAND columns.  cpt > 1 columns a thread
+// (the wide body): at most WIDE_THREADS threads, k <= FAST_MAX.
+inline bool band_ok(int band_w, int seg_rows, int k, int cpt = 1) {
+  if (cpt == 1) {
+    return band_w >= 32 && band_w <= MAX_BAND && band_w % 32 == 0 &&
+           band_w > 2 * k && seg_rows >= 1;
+  }
+  return cpt > 1 && band_w % (32 * cpt) == 0 && band_w <= WIDE_THREADS * cpt &&
+         band_w > 2 * k && k <= FAST_MAX && seg_rows >= 1;
 }
 
 // What a ring slot holds: the element, or for bf16 the aligned word
@@ -176,6 +226,10 @@ __device__ __forceinline__ void cp_async(W* dst, const W* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
                "n"(sizeof(W)));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -338,67 +392,388 @@ __device__ __forceinline__ void stream_band(const Source& src, T* __restrict__ o
   }
 }
 
+// The wide body's shared layout.  A ring row holds the band's window
+// columns between a 16-byte pad on each side, so each thread's cpt words
+// start 16-byte aligned; its stride follows the band's width.  The
+// exchange rows hold, per parity and level, each warp's first and last
+// column (slot w + 1 for warp w; slots 0 and warps + 1 stay zero).
+template <typename T>
+__host__ __device__ constexpr int wide_pad() {
+  return 16 / static_cast<int>(sizeof(typename Word<T>::type));
+}
+template <typename T>
+__host__ __device__ constexpr int wide_stride(int band_w) {
+  return band_w + 2 * wide_pad<T>();
+}
+constexpr int WIDE_SLOTS = WIDE_THREADS / 32 + 2;
+template <typename T, typename C, int KB, int CPT>
+__host__ __device__ constexpr size_t wide_smem_bytes(int band_w) {
+  return RING * static_cast<size_t>(wide_stride<T>(band_w)) *
+             sizeof(typename Word<T>::type) +
+         2 * static_cast<size_t>(KB) * WIDE_SLOTS * 2 * sizeof(C);
+}
+
+// cpt words of a ring row into registers, in one shared load where they
+// span 16 bytes.
+template <int CPT, typename W>
+__device__ __forceinline__ void load_words(const W* p, W (&v)[CPT]) {
+  if constexpr (CPT * sizeof(W) == 16) {
+    const uint4 t = *reinterpret_cast<const uint4*>(p);
+    memcpy(v, &t, 16);
+  } else {
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) v[j] = p[j];
+  }
+}
+
+// cpt adjacent outputs, in one global store (aligned to their whole size)
+// for the column counts of WIDE_COLS and WIDE_COLS_F64.
+template <int CPT>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[CPT]) {
+  if constexpr (CPT == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) p[j] = v[j];
+  }
+}
+template <int CPT>
+__device__ __forceinline__ void store_vec(double* p, const double (&v)[CPT]) {
+  if constexpr (CPT == 2) {
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) p[j] = v[j];
+  }
+}
+template <int CPT>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&v)[CPT]) {
+  if constexpr (CPT == 4) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 w;
+    memcpy(&w.x, &lo, 4);
+    memcpy(&w.y, &hi, 4);
+    *reinterpret_cast<uint2*>(p) = w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) store(p + j, v[j]);
+  }
+}
+
+// A block barrier that the warps of a block may reach from different
+// instantiations of the wide body (barrier.sync without .aligned): the
+// edge warps and the others run the same rows, one barrier each.
+__device__ __forceinline__ void wide_sync() {
+  asm volatile("barrier.sync 0;\n" ::: "memory");
+}
+
+// The wide body: stream_band with CPT adjacent window columns a thread,
+// c0 = CPT * threadIdx.x .. c0 + CPT - 1, tile columns tc0 onwards.  The
+// pipeline is stream_band's (levels one row apart, m2 / m1 / the incoming
+// row in registers, one barrier a row, rows AHEAD rows early); what
+// differs is where xm and xp come from: a thread's inner columns read
+// their neighbours' registers, its outer two take the lane beside it by
+// shuffle, and at a warp's ends lane 0 and lane 31 read the neighbouring
+// warp's end column that it wrote to the exchange rows one row earlier.
+// All of a row's shuffles and exchange reads come first, off the levels'
+// chain, and a fixed x side at a thread's outer column replaces that
+// neighbour there.  EDGES: this warp holds a fixed side's column at an
+// inner column, or its block a fixed side's row, and runs every select;
+// the other warps run a copy of the loop without them.  The loop body
+// covers three rows, the registers' rotation; the ring slot and the
+// exchange parity step at run time.
+template <typename T, typename C, int KB, int CPT, bool EDGES, typename Source>
+__device__ __forceinline__ void stream_band_wide(const Source& src, T* __restrict__ out,
+                                                 const Pass& p, unsigned char* smem,
+                                                 int y0, int rows, int tc0,
+                                                 unsigned colbits) {
+  using W = typename Word<T>::type;
+  constexpr bool kWidened = !std::is_same<T, C>::value;
+  // One 16-byte copy brings a thread's columns where they are 16 bytes of
+  // the field; bf16's ring holds one word an element.
+  constexpr bool kVecIn = !kWidened && CPT * sizeof(T) == 16;
+  constexpr int SL = 2 * WIDE_SLOTS;  // exchange entries a level
+  constexpr unsigned FULL = 0xffffffffu;
+  const int k = p.s.k, c = threadIdx.x, lane = c & 31, warp = c >> 5;
+  const int rs = wide_stride<T>(p.band_w);
+  W* ring = reinterpret_cast<W*>(smem) + wide_pad<T>() + c * CPT;
+  C* xch = reinterpret_cast<C*>(
+      smem + RING * static_cast<size_t>(rs) * sizeof(W));  // [parity][level][slot][end]
+  const bool lo_lane = lane == 0, hi_lane = lane == 31, end_lane = lo_lane || hi_lane;
+  const int xw = 2 * (warp + 1) + (hi_lane ? 1 : 0);      // this lane's entry
+  const int xr = lo_lane ? 2 * warp + 1 : 2 * (warp + 2);  // the one it reads
+
+  const C wc = static_cast<C>(p.s.wc), wxm = static_cast<C>(p.s.wxm),
+          wxp = static_cast<C>(p.s.wxp), wym = static_cast<C>(p.s.wym),
+          wyp = static_cast<C>(p.s.wyp);
+  const int* fix = p.s.fix;
+  const bool self_l = fix[0] == FIX_NEUMANN, self_r = fix[1] == FIX_NEUMANN;
+  const bool self_b = fix[2] == FIX_NEUMANN, self_t = fix[3] == FIX_NEUMANN;
+  const C g_l = ghost_const<C>(fix[0], p.s.bc_value);
+  const C g_r = ghost_const<C>(fix[1], p.s.bc_value);
+  const C g_b = ghost_const<C>(fix[2], p.s.bc_value);
+  const C g_t = ghost_const<C>(fix[3], p.s.bc_value);
+
+  // Which columns this thread writes: the band's centre, inside the field.
+  unsigned writes = 0;
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {
+    const int cw = CPT * c + j;
+    if (cw >= k && cw < p.band_w - k && tc0 + j < p.nx) writes |= 1u << j;
+  }
+  T* dst = out + static_cast<long long>(y0) * p.ld_out + tc0;  // next output row
+  const bool vec_out =
+      writes == (1u << CPT) - 1 && p.ld_out % CPT == 0 &&
+      reinterpret_cast<uintptr_t>(dst) % (CPT * sizeof(T)) == 0;
+
+  // The load cursor runs AHEAD rows in front of the row in use.
+  int col[CPT];
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) col[j] = src.column(tc0 + j);
+  const bool vec_in = kVecIn && src.contiguous(tc0, CPT);
+  int ld_row = src.row_start(y0 - k);
+  unsigned halves = 0;  // bf16: bit CPT * j + c, the half of column c in row i + j
+  auto load = [&](W* slot, int ahead) {
+    if (vec_in) {
+      cp_async16(slot, src.at(ld_row, col[0]));
+    } else {
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const T* e = src.at(ld_row, col[j]);
+        cp_async(slot + j, word_of(e));
+        halves |= half_of(e) << (CPT * ahead + j);
+      }
+    }
+    ld_row = src.row_next(ld_row);
+  };
+#pragma unroll
+  for (int j = 0; j < AHEAD; ++j) {
+    if (j < rows) load(ring + j * rs, j);
+    cp_async_commit();
+  }
+
+  int bits_row = src.row_start(y0 - k);
+  unsigned long long h_lo = 0, h_hi = 0;  // bit s: row i - s's edge bits
+  // q[s][i % 3][j]: level s's row computed at iteration i (row i - s).
+  C q[KB][3][CPT];
+  C last[CPT];  // level KB's row
+#pragma unroll
+  for (int s = 0; s < KB; ++s) {
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) q[s][0][j] = q[s][1][j] = q[s][2][j] = static_cast<C>(0);
+  }
+
+  auto emit = [&](const C(&v)[CPT]) {
+    if (vec_out) {
+      store_vec<CPT>(dst, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        if ((writes >> j) & 1u) store(dst + j, v[j]);
+      }
+    }
+  };
+
+  int slot = 0;        // ring slot of row i: i mod RING
+  C* cur = xch;        // exchange rows written at row i (parity i & 1) ...
+  C* old = xch + KB * SL;  // ... and those of row i - 1
+  auto row = [&](int i, auto u) {
+    constexpr int U = decltype(u)::value;
+    constexpr int NOW = U, ONE = (U + 2) % 3, TWO = (U + 1) % 3;
+    cp_async_wait<AHEAD - 1>();
+    wide_sync();
+    {
+      W v[CPT];
+      load_words<CPT>(ring + slot * rs, v);
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) q[0][NOW][j] = widen(v[j], (halves >> j) & 1u);
+      halves >>= CPT;
+    }
+    if (i + AHEAD < rows) load(ring + (slot + AHEAD) % RING * rs, AHEAD - 1);
+    cp_async_commit();
+    if (EDGES) {
+      const unsigned b = src.row_bits(bits_row);
+      bits_row = src.row_next(bits_row);
+      h_lo = (h_lo << 1) | (b & 1u);
+      h_hi = (h_hi << 1) | ((b >> 1) & 1u);
+    }
+    // The outer neighbours of every level's centre row (level s - 1's row
+    // i - s, one row old), before this row's exchange writes.
+    C left[KB], right[KB];
+#pragma unroll
+    for (int s = 0; s < KB; ++s) {
+      const C far = end_lane ? old[s * SL + xr] : static_cast<C>(0);
+      left[s] = __shfl_up_sync(FULL, q[s][ONE][CPT - 1], 1);
+      right[s] = __shfl_down_sync(FULL, q[s][ONE][0], 1);
+      if (lo_lane) left[s] = far;
+      if (hi_lane) right[s] = far;
+      // A fixed x side at the thread's first (last) column: its xm (xp)
+      // is the ghost, whatever lies beyond.
+      if (colbits & 1u) left[s] = self_l ? q[s][ONE][0] : g_l;
+      if ((colbits >> (2 * CPT - 1)) & 1u) right[s] = self_r ? q[s][ONE][CPT - 1] : g_r;
+    }
+    if (end_lane) cur[xw] = hi_lane ? q[0][NOW][CPT - 1] : q[0][NOW][0];
+#pragma unroll
+    for (int s = 1; s <= KB; ++s) {
+      C r[CPT];
+      // The JAX kernel's accumulation order: c, ym, yp, xm, xp; each step
+      // across the columns, so their chains interleave.  The first sum
+      // keeps the one-column body's expression, so nvcc fuses its two
+      // products the same way.
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const C a = q[s - 1][ONE][j];
+        C ym = q[s - 1][TWO][j];
+        if (EDGES && ((h_lo >> s) & 1ull)) ym = self_b ? a : g_b;
+        r[j] = wc * a + wym * ym;
+      }
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        C yp = q[s - 1][NOW][j];
+        if (EDGES && ((h_hi >> s) & 1ull)) yp = self_t ? q[s - 1][ONE][j] : g_t;
+        r[j] = r[j] + wyp * yp;
+      }
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        C xm = j == 0 ? left[s - 1] : q[s - 1][ONE][j - 1];
+        if (EDGES && ((colbits >> (2 * j)) & 1u)) xm = self_l ? q[s - 1][ONE][j] : g_l;
+        r[j] = r[j] + wxm * xm;
+      }
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        C xp = j == CPT - 1 ? right[s - 1] : q[s - 1][ONE][j + 1];
+        if (EDGES && ((colbits >> (2 * j + 1)) & 1u)) xp = self_r ? q[s - 1][ONE][j] : g_r;
+        r[j] = r[j] + wxp * xp;
+      }
+      if (s < KB) {
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) q[s][NOW][j] = r[j];
+        if (end_lane) cur[s * SL + xw] = hi_lane ? r[CPT - 1] : r[0];
+      } else {
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) last[j] = r[j];
+      }
+    }
+    // Level k's window row i - k: output row y0 + i - 2k.
+    if (i >= 2 * k) {
+      if (k == KB) {
+        emit(last);
+      } else {
+#pragma unroll
+        for (int s = 1; s < KB; ++s) {
+          if (s == k) emit(q[s][NOW]);
+        }
+      }
+      dst += p.ld_out;
+    }
+    slot = slot == RING - 1 ? 0 : slot + 1;
+    C* t = cur;
+    cur = old;
+    old = t;
+  };
+
+  for (int i = 0; i < rows; i += 3) {
+    row(i, std::integral_constant<int, 0>{});
+    if (i + 1 < rows) row(i + 1, std::integral_constant<int, 1>{});
+    if (i + 2 < rows) row(i + 2, std::integral_constant<int, 2>{});
+  }
+}
+
 // One block per band segment (grid: bands x segments).  minBlocks = 1 lets
 // ptxas keep every level's rows in registers: without it, it trades the
-// 8- and 16-level f32/bf16 kernels down to 80 registers and spills.
-template <typename T, typename C, int KB, typename Source>
-__global__ void __launch_bounds__(MAX_BAND, 1)
+// 8- and 16-level f32/bf16 kernels down to 80 registers and spills.  CPT
+// columns a thread: 1 runs stream_band, more the wide body.
+template <typename T, typename C, int KB, int CPT, typename Source>
+__global__ void __launch_bounds__(CPT == 1 ? MAX_BAND : WIDE_THREADS,
+                                  CPT == 1 ? 1 : WIDE_MIN_BLOCKS)
     band_kernel(Source src, T* __restrict__ out, Pass p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int k = p.s.k;
   const int x0 = blockIdx.x * (p.band_w - 2 * k);  // first output column
   const int y0 = blockIdx.y * p.seg_rows;          // first output row
   const int rows = min(p.seg_rows, p.ny - y0) + 2 * k;
-  const int tc = x0 - k + static_cast<int>(threadIdx.x);
+  const int tc = x0 - k + CPT * static_cast<int>(threadIdx.x);
 
   // Zero the shared layout (pads and start-up rows hold zeros, not stale
   // bits), and decide whether this block's window touches a fixed side.
-  constexpr int words = static_cast<int>(band_smem_bytes<T, C, KB>() / 4);
+  const int words = static_cast<int>(
+      (CPT == 1 ? band_smem_bytes<T, C, KB>() : wide_smem_bytes<T, C, KB, CPT>(p.band_w)) / 4);
   for (int i = threadIdx.x; i < words; i += blockDim.x) {
     reinterpret_cast<uint32_t*>(smem)[i] = 0u;
   }
-  const unsigned colbits = src.col_bits(tc);
-  unsigned any = colbits;
+  unsigned colbits = 0, rowbits = 0;
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) colbits |= src.col_bits(tc + j) << (2 * j);
   for (int j = threadIdx.x; j < rows; j += blockDim.x) {
-    any |= src.row_bits(src.row_start(y0 - k + j));
+    rowbits |= src.row_bits(src.row_start(y0 - k + j));
   }
-  const bool edges = __syncthreads_or(any != 0u);
-  if constexpr (KB <= FAST_MAX) {
-    if (!edges) {
-      stream_band<T, C, KB, false>(src, out, p, smem, y0, rows, tc, 0u);
-      return;
+  if constexpr (CPT == 1) {
+    const bool edges = __syncthreads_or((colbits | rowbits) != 0u);
+    if constexpr (KB <= FAST_MAX) {
+      if (!edges) {
+        stream_band<T, C, KB, false>(src, out, p, smem, y0, rows, tc, 0u);
+        return;
+      }
+    }
+    stream_band<T, C, KB, true>(src, out, p, smem, y0, rows, tc, colbits);
+  } else {
+    // The rows' bits decide for the block, the columns' for each warp: a
+    // fixed x side at a thread's first or last column costs one select a
+    // level (its outer neighbour is the ghost); one at an inner column
+    // takes the selects of every column.
+    constexpr unsigned outer = 1u | (1u << (2 * CPT - 1));
+    const bool row_edges = __syncthreads_or(rowbits != 0u);
+    if (row_edges || __any_sync(0xffffffffu, (colbits & ~outer) != 0u)) {
+      stream_band_wide<T, C, KB, CPT, true>(src, out, p, smem, y0, rows, tc, colbits);
+    } else {
+      stream_band_wide<T, C, KB, CPT, false>(src, out, p, smem, y0, rows, tc, colbits);
     }
   }
-  stream_band<T, C, KB, true>(src, out, p, smem, y0, rows, tc, colbits);
 }
 
-template <typename T, typename C, int KB, typename Source>
+template <typename T, typename C, int KB, int CPT, typename Source>
 cudaError_t launch_levels(const Source& src, T* out, const Pass& p,
                           cudaStream_t stream) {
-  constexpr size_t smem = band_smem_bytes<T, C, KB>();
-  const cudaError_t e = allow_smem(band_kernel<T, C, KB, Source>, smem);
+  const size_t smem = CPT == 1 ? band_smem_bytes<T, C, KB>()
+                               : wide_smem_bytes<T, C, KB, CPT>(p.band_w);
+  const cudaError_t e = allow_smem(band_kernel<T, C, KB, CPT, Source>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.nx + p.band_w - 2 * p.s.k - 1) / (p.band_w - 2 * p.s.k),
                   (p.ny + p.seg_rows - 1) / p.seg_rows);
   if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-  band_kernel<T, C, KB, Source><<<grid, p.band_w, smem, stream>>>(src, out, p);
+  band_kernel<T, C, KB, CPT, Source><<<grid, p.band_w / CPT, smem, stream>>>(src, out, p);
   return cudaGetLastError();
 }
 
 // Launch one pass of the core on the current stream, with the least level
-// count that covers k.
-template <typename T, typename C, typename Source>
+// count that covers k.  WIDE (K1 alone): passes up to FAST_MAX steps run
+// the wide body, WIDE_COLS columns a thread (WIDE_COLS_F64 in f64), and
+// only deeper ones the one-column body.
+template <typename T, typename C, bool WIDE, typename Source>
 cudaError_t launch_band(const Source& src, void* out, const Pass& p,
                         cudaStream_t stream) {
-  if (!band_ok(p.band_w, p.seg_rows, p.s.k)) return cudaErrorInvalidValue;
   T* o = static_cast<T*>(out);
   const int k = p.s.k;
-  if (k <= 1) return launch_levels<T, C, 1>(src, o, p, stream);
-  if (k <= 2) return launch_levels<T, C, 2>(src, o, p, stream);
-  if (k <= 4) return launch_levels<T, C, 4>(src, o, p, stream);
-  if (k <= 8) return launch_levels<T, C, 8>(src, o, p, stream);
-  if (k <= 16) return launch_levels<T, C, 16>(src, o, p, stream);
-  return launch_levels<T, C, MAX_STEPS>(src, o, p, stream);
+  if constexpr (WIDE) {
+    constexpr int W = std::is_same<T, double>::value ? WIDE_COLS_F64 : WIDE_COLS;
+    if (k <= FAST_MAX) {
+      if (!band_ok(p.band_w, p.seg_rows, k, W)) return cudaErrorInvalidValue;
+      if (k <= 1) return launch_levels<T, C, 1, W>(src, o, p, stream);
+      if (k <= 2) return launch_levels<T, C, 2, W>(src, o, p, stream);
+      if (k <= 4) return launch_levels<T, C, 4, W>(src, o, p, stream);
+      return launch_levels<T, C, FAST_MAX, W>(src, o, p, stream);
+    }
+  }
+  if (!band_ok(p.band_w, p.seg_rows, k)) return cudaErrorInvalidValue;
+  if constexpr (!WIDE) {
+    if (k <= 1) return launch_levels<T, C, 1, 1>(src, o, p, stream);
+    if (k <= 2) return launch_levels<T, C, 2, 1>(src, o, p, stream);
+    if (k <= 4) return launch_levels<T, C, 4, 1>(src, o, p, stream);
+    if (k <= 8) return launch_levels<T, C, 8, 1>(src, o, p, stream);
+  }
+  if (k <= 16) return launch_levels<T, C, 16, 1>(src, o, p, stream);
+  return launch_levels<T, C, MAX_STEPS, 1>(src, o, p, stream);
 }
 
 template <typename T>
@@ -407,18 +782,20 @@ struct Tag {
 };
 
 // Launch one pass for a dtype code (0 float32, 1 float64, 2 bfloat16
-// storage with float32 arithmetic) with the source make(Tag<T>) builds.
-template <typename Make>
+// storage with float32 arithmetic) with the source make(Tag<T>) builds;
+// WIDE as in launch_band.
+template <bool WIDE = false, typename Make>
 inline int dispatch(int dtype, const Pass& p, void* out, void* stream, Make make) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return static_cast<int>(launch_band<float, float>(make(Tag<float>{}), out, p, s));
+      return static_cast<int>(launch_band<float, float, WIDE>(make(Tag<float>{}), out, p, s));
     case 1:
-      return static_cast<int>(launch_band<double, double>(make(Tag<double>{}), out, p, s));
+      return static_cast<int>(
+          launch_band<double, double, WIDE>(make(Tag<double>{}), out, p, s));
     case 2:
       return static_cast<int>(
-          launch_band<__nv_bfloat16, float>(make(Tag<__nv_bfloat16>{}), out, p, s));
+          launch_band<__nv_bfloat16, float, WIDE>(make(Tag<__nv_bfloat16>{}), out, p, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -26,11 +26,12 @@ import fcntl
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from dataclasses import dataclass
-from typing import List
+from typing import Dict, List
 
 from ..runtime import tracing
 
@@ -74,6 +75,19 @@ def kernel_headers() -> List[str]:
     """The headers the sources include; they enter the hash, so an edit to
     one rebuilds the library."""
     return _csrc_files(".cuh")
+
+
+@functools.lru_cache(maxsize=None)
+def core_constants() -> Dict[str, int]:
+    """The ``constexpr int NAME = value;`` lines of ``csrc/stencil_core.cuh``:
+    the core's limits (its widest band, its wide body's columns and
+    threads), which the wrappers' band geometry follows.  Read from the
+    header, so the kernels and the wrappers take them from one place, with
+    or without a built library."""
+    with open(os.path.join(CSRC_DIR, "stencil_core.cuh")) as f:
+        text = f.read()
+    return {m.group(1): int(m.group(2))
+            for m in re.finditer(r"^constexpr int (\w+) = (\d+);", text, re.M)}
 
 
 def find_nvcc() -> str:

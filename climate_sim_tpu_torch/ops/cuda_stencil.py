@@ -8,8 +8,9 @@ one pass of the hand-written CUDA kernel ``csrc/multistep_stencil.cu``, and
 The update is linear with config-constant coefficients, so one Euler step
 collapses to a 5-point weighted stencil (:func:`_stencil_weights`).  The
 kernel streams column bands of the field down their rows with the k
-sub-steps pipelined one row apart (:func:`band_geometry` sizes the bands)
-and re-pins the physical-edge ghosts at every sub-step, so one pass equals
+sub-steps pipelined one row apart (:func:`k1_geometry` sizes the bands and
+says how many columns a thread holds) and re-pins the physical-edge ghosts
+at every sub-step, so one pass equals
 ``k`` iterations of ``pad_with_ghosts`` + the weighted stencil
 (:func:`multistep_pass_plain`) for every grid shape, BC mix and dtype; it
 never declines, and the advance has no per-pass fallback.
@@ -27,17 +28,32 @@ import torch
 
 from ..config import BCType, SimConfig
 from ..runtime import tracing
+from ._build import core_constants
 from .boundary import pad_with_ghosts
 
 # Side codes of the C interface (csrc/multistep_stencil.cu).
 _FIX_NONE, _FIX_DIRICHLET, _FIX_NEUMANN, _FIX_ZERO = 0, 1, 2, 3
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 MAX_STEPS_PER_PASS = 32
-# The widest band of the kernels' core (csrc/stencil_core.cuh): window
-# columns, one thread each, of a block.
-MAX_BAND = 256
-# Blocks a pass should have at least: two on each of the H100's 132 SMs.
-MIN_BLOCKS = 2 * 132
+# The core's limits (csrc/stencil_core.cuh, read from the header).
+_CORE = core_constants()
+# The widest band of the one-column body: window columns, one thread
+# each, of a block.
+MAX_BAND = _CORE["MAX_BAND"]
+# The H100's SMs; blocks a pass should have at least: two on each.
+SMS = 132
+MIN_BLOCKS = 2 * SMS
+# K1's wide body: window columns a thread by storage type, threads a block
+# at most, the warps an SM holds of it (its launch bounds keep every
+# instantiation to WIDE_MIN_BLOCKS blocks of WIDE_THREADS an SM), and the
+# deepest pass it runs.
+WIDE_COLUMNS = {torch.float32: _CORE["WIDE_COLS"], torch.bfloat16: _CORE["WIDE_COLS"],
+                torch.float64: _CORE["WIDE_COLS_F64"]}
+WIDE_THREADS = _CORE["WIDE_THREADS"]
+WIDE_WARPS_PER_SM = _CORE["WIDE_MIN_BLOCKS"] * WIDE_THREADS // 32
+WIDE_MAX_STEPS = _CORE["FAST_MAX"]
+# Output rows a wide segment has at least (or the whole height).
+WIDE_MIN_ROWS = 4
 
 
 class BandGeometry(NamedTuple):
@@ -81,6 +97,76 @@ def band_geometry(ny: int, nx: int, k: int) -> BandGeometry:
         else:
             break
     return BandGeometry(width, rows, -(-nx // (width - 2 * k)), -(-ny // rows))
+
+
+class K1Geometry(NamedTuple):
+    """K1's cut of an (ny, nx) field for a k-step pass: :class:`BandGeometry`'s
+    fields, ``width`` in window columns, and ``cpt`` window columns a thread
+    (1: the one-column body at :func:`band_geometry`'s geometry)."""
+
+    width: int
+    rows: int
+    bands: int
+    segments: int
+    cpt: int
+
+
+def wide_geometry(ny: int, nx: int, k: int, cpt: int, threads: int,
+                  blocks_per_sm: int = 0) -> K1Geometry:
+    """The wide body's geometry with ``threads`` threads a block: as many
+    segments as make one wave of ``blocks_per_sm`` blocks on every SM (by
+    default the blocks of this size that make WIDE_WARPS_PER_SM warps), at
+    least WIDE_MIN_ROWS rows each, at most the height."""
+    width = threads * cpt
+    bands = -(-nx // (width - 2 * k))
+    per_sm = blocks_per_sm or WIDE_WARPS_PER_SM // (threads // 32)
+    segments = max(1, min(ny // WIDE_MIN_ROWS, SMS * per_sm // bands))
+    rows = -(-ny // segments)
+    return K1Geometry(width, rows, bands, -(-ny // rows), cpt)
+
+
+def wide_cost(g: K1Geometry, k: int) -> int:
+    """A wide cut's time, in units of one warp's issue for a row: each of
+    a segment's window rows costs the busiest SM its warps' issue (whole
+    blocks, spread evenly over the SMS) plus, in each wave of up to
+    WIDE_WARPS_PER_SM warps, the latency of the row's chain through the
+    k levels, which is worth about WIDE_WARPS_PER_SM warps' issue.  So the
+    chain sets the pace of a grid that leaves SMs few warps, and a taller
+    segment (fewer lead-in rows) pays only where the SMs are full.  Fitted
+    on the H100 to K1's times from 256² to 4096² (PERF.md)."""
+    warps = -(-g.bands * g.segments // SMS) * (g.width // g.cpt // 32)
+    waves = -(-warps // WIDE_WARPS_PER_SM)
+    return (g.rows + 2 * k) * (warps + waves * WIDE_WARPS_PER_SM)
+
+
+@functools.lru_cache(maxsize=256)
+def k1_geometry(ny: int, nx: int, k: int, dtype: torch.dtype) -> K1Geometry:
+    """The geometry K1 runs an (ny, nx) field with at pass size k.
+
+    Up to WIDE_MAX_STEPS steps, the wide body: WIDE_COLUMNS[dtype] columns
+    a thread, and of the blocks of whole warps (at most WIDE_THREADS) in
+    one wave of 1, 2, ... blocks an SM (:func:`wide_geometry`, up to
+    WIDE_WARPS_PER_SM warps) the cut of least :func:`wide_cost`; on a tie
+    the narrower block, then the fewer blocks.  Bands wider than the
+    field's width with its halo are not tried.  Deeper passes (whose
+    levels do not fit the registers of several columns) take the
+    one-column body at :func:`band_geometry`'s geometry."""
+    if not (1 <= k <= MAX_STEPS_PER_PASS and ny >= 1 and nx >= 1):
+        raise ValueError(f"no band geometry for ({ny}, {nx}) at k={k}")
+    if k > WIDE_MAX_STEPS:
+        return K1Geometry(*band_geometry(ny, nx, k), 1)
+    cpt = WIDE_COLUMNS[dtype]
+    best = None
+    for threads in range(32, WIDE_THREADS + 1, 32):
+        if threads * cpt <= 2 * k:
+            continue
+        for per_sm in range(1, WIDE_WARPS_PER_SM // (threads // 32) + 1):
+            g = wide_geometry(ny, nx, k, cpt, threads, per_sm)
+            if best is None or wide_cost(g, k) < wide_cost(best, k):
+                best = g
+        if threads * cpt - 2 * k >= nx:  # one band holds the width: wider ones only cost
+            break
+    return best
 
 
 def _stencil_weights(dt, D, vx, vy, dx, dy):
@@ -208,10 +294,12 @@ def multistep_kernel_step(
 
     A CUDA tensor launches the kernel on the current stream into a fresh
     output (the input is never written) or raises; a CPU tensor takes the
-    plain version.  ``multistep_kernel_step.launches`` counts the launches;
-    while tracing is on, the counter ``k1.host_ns`` adds the host time of
-    each launch from entry to the C call (which blocks while the launch
-    queue is full, so it is left out).
+    plain version.  ``multistep_kernel_step.launches`` counts the launches,
+    ``multistep_kernel_step.wide_launches`` those that ran the wide body
+    (:func:`k1_geometry`'s ``cpt`` > 1); while tracing is on, the counter
+    ``k1.host_ns`` adds the host time of each launch from entry to the C
+    call (which blocks while the launch queue is full, so it is left out),
+    and ``k1.wide_launches`` counts the wide launches.
     """
     traced = tracing.ON
     if traced:
@@ -230,7 +318,7 @@ def multistep_kernel_step(
         for b in (cfg.bc.left, cfg.bc.right, cfg.bc.bottom, cfg.bc.top)
     ]
     weights = _stencil_weights(dt, cfg.D, cfg.vx, cfg.vy, cfg.dx, cfg.dy)
-    geo = band_geometry(cfg.ny, cfg.nx, k)
+    geo = k1_geometry(cfg.ny, cfg.nx, k, u.dtype)
     out = torch.empty_like(u)
     with on_device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
@@ -245,10 +333,15 @@ def multistep_kernel_step(
         msg = lib.climate_cuda_error_string(err).decode()
         raise RuntimeError(f"K1 launch failed: CUDA error {err} ({msg})")
     multistep_kernel_step.launches += 1
+    if geo.cpt > 1:
+        multistep_kernel_step.wide_launches += 1
+        if traced:
+            tracing.add("k1.wide_launches", 1)
     return out
 
 
 multistep_kernel_step.launches = 0
+multistep_kernel_step.wide_launches = 0
 
 
 def build_multistep_advance(

@@ -12,7 +12,10 @@ into its own ``_build/``) and times, f32 unless named, the launches of one
 CUDA graph replay (``chip_smoke.graph_ms``: the card's time, not the
 wrappers' host time):
 
-* K1 on a 4096² field, bench BCs, k = 8, in float32, bfloat16 and float64;
+* K1 on a 4096² field, bench BCs, k = 8, in float32, bfloat16 and float64,
+  and at k = 8 on the smaller grids users run: 2048², 1024² and
+  ``configs/dev.yaml``'s 512² in float32, ``configs/parity_f64.yaml``'s
+  256² in float64;
 * K2 on a 2050² padded tile, and ``conv2d`` computing the same function
   (the five weights as a 3x3 cross, TF32 off) beside it;
 * K3 on a 2048² region of a 2064² window, and on its 8-column band;
@@ -69,6 +72,12 @@ def time_kernels(root: str) -> dict:
                         ("float64", torch.float64)):
         u = base.to(dtype)
         out[f"K1_{name}"] = ms(lambda: cs.multistep_kernel_step(u, cfg, cfg.dt, 8), 100)
+    for n, dtype in ((2048, torch.float32), (1024, torch.float32), (512, torch.float32),
+                     (256, torch.float64)):
+        ncfg = smoke.make_cfg(n, n, "bench")
+        u = smoke.edge_parked(torch, n, n, seed=7, device=dev).to(dtype)
+        out[f"K1_{n}_{str(dtype)[6:]}"] = ms(
+            lambda: cs.multistep_kernel_step(u, ncfg, ncfg.dt, 8), 200)
 
     m, k, flags = 2048, 8, (1, 0, 1, 0)
     tcfg = smoke.make_cfg(2 * m, 2 * m, "bench")

@@ -51,7 +51,8 @@ needs_cc = pytest.mark.skipif(HOST_CC is None, reason="no host C compiler")
 # ------------------------------------------------- the nvcc build, faked
 
 # The five C entry points and the error string, split by the source that
-# defines them; each records its integer and floating-point arguments.
+# defines them; each records its integer and floating-point arguments (K1
+# also its stream, so an argument too many shows).
 STUB_C = textwrap.dedent("""\
     #include <stdio.h>
     typedef long long ll;
@@ -72,7 +73,7 @@ STUB_C = textwrap.dedent("""\
             double wc, double wxm, double wxp, double wym, double wyp,
             int fl, int fr, int fb, int ft, double bcv, int bw, int rows, void *s) {
         BEGIN(1); REC_I(ny); REC_I(nx); REC_I(k); REC_I(dtype); SIDES(fl, fr, fb, ft);
-        REC_I(bw); REC_I(rows); WEIGHTS; REC_D(bcv);
+        REC_I(bw); REC_I(rows); REC_I((ll)s); WEIGHTS; REC_D(bcv);
         return stub_error;
     }
     #else
@@ -350,11 +351,12 @@ def test_k1_launch_marshals_the_c_interface(stub, dtype):
     out = tcs.multistep_kernel_step(u, cfg, 0.1, 3)
     assert tcs.multistep_kernel_step.launches == before + 1
     assert out.shape == u.shape and out.dtype == dtype
-    geo = tcs.band_geometry(40, 100, 3)
+    geo = tcs.k1_geometry(40, 100, 3, dtype)
+    assert geo.cpt == tcs.WIDE_COLUMNS[dtype]
     fixes = [tcs._fix_code(b, False) for b in (cfg.bc.left, cfg.bc.right, cfg.bc.bottom,
                                                  cfg.bc.top)]
     assert recorded(stub) == (1, [40, 100, 3, tcs._DTYPE_CODES[dtype], *fixes, geo.width,
-                                  geo.rows],
+                                  geo.rows, 0],
                               [*tcs._stencil_weights(0.1, 0.05, 0.5, -0.25, 1.0, 1.0), 0.0])
     set_stub_error(stub, 9)
     with pytest.raises(RuntimeError, match=r"K1 launch failed: CUDA error 9 \(stub error 9\)"):

@@ -85,10 +85,11 @@ def jax_oracle(u, jcfg, dt, steps):
 # ------------------------------------------------------------------- K1
 
 
-def band_edge_width(k):
-    """nx one more than a band's output width at pass size k on a tall
-    grid (the streaming core's edge; ``chip_smoke.py`` phase 3)."""
-    return tcs.band_geometry(4096, 4096, k).width - 2 * k + 1
+def band_edge_width(k, dtype):
+    """nx one more than K1's band output width at pass size k and dtype on
+    a tall grid (the streaming core's edge; ``chip_smoke.py``'s fuzz)."""
+    torch_dtype = {"f32": torch.float32, "f64": torch.float64}[dtype]
+    return tcs.k1_geometry(4096, 4096, k, torch_dtype).width - 2 * k + 1
 
 
 def k1_draws(n=16, seed=20260817):
@@ -100,7 +101,7 @@ def k1_draws(n=16, seed=20260817):
     draws = []
     for trial in range(n):
         k = rng.choice([1, 2, 5, 8, 32])
-        nx = rng.choice([20, 40, 96, 128, 136, 200, band_edge_width(k)])
+        nx = rng.choice([20, 40, 96, 128, 136, 200, None])  # None: K1's band edge
         ny = rng.choice([7, 24, 64, 96, 130])
         D = rng.choice([0.0, 0.1, 0.24])
         vx = rng.choice([0.0, -0.7, 1.0])
@@ -113,6 +114,8 @@ def k1_draws(n=16, seed=20260817):
         compat = rng.random() < 0.25
         park = rng.choice([0, 1]) if rng.random() < 0.5 else None
         dtype = rng.choice(list(DTYPES))
+        if nx is None:
+            nx = band_edge_width(k, dtype)
         draws.append(pytest.param(
             dict(nx=nx, ny=ny, D=D, vx=vx, vy=vy, dx=dx, dy=dy, dt=dt, k=k, bcs=bcs,
                  compat=compat, park=park, dtype=dtype),
@@ -190,6 +193,26 @@ def test_band_geometry_fits_the_core_at_every_k(k):
         g = tcs.band_geometry(ny, nx, k)
         assert g.width % 32 == 0 and 2 * k < g.width <= tcs.MAX_BAND and g.rows >= 1, (
             ny, nx, g)
+
+
+@pytest.mark.parametrize("k", range(1, tcs.MAX_STEPS_PER_PASS + 1))
+def test_k1_geometry_fits_the_core_at_every_k(k):
+    """K1's geometry is one the core launches, for every dtype: the wide
+    body (cpt > 1, up to WIDE_MAX_STEPS) takes whole warps of cpt columns
+    a thread, at most WIDE_THREADS threads, wider than the 2k halo; deeper
+    passes take band_geometry's one-column cut."""
+    rng = np.random.default_rng(100 + k)
+    shapes = [(262, 326), (4096, 4096), (1, 1), (8, 2048), (2048, 8)]
+    shapes += [tuple(int(v) for v in rng.integers(1, 5000, 2)) for _ in range(40)]
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        for ny, nx in shapes:
+            g = tcs.k1_geometry(ny, nx, k, dtype)
+            if k > tcs.WIDE_MAX_STEPS:
+                assert g == (*tcs.band_geometry(ny, nx, k), 1), (ny, nx, g)
+                continue
+            assert g.cpt == tcs.WIDE_COLUMNS[dtype], (ny, nx, g)
+            assert g.width % (32 * g.cpt) == 0 and 2 * k < g.width, (ny, nx, g)
+            assert g.width <= tcs.WIDE_THREADS * g.cpt and g.rows >= 1, (ny, nx, g)
 
 
 # -------------------------------------------------------------- carrier

@@ -9,13 +9,16 @@ bf16 storage within ``8e-3`` of the f32 oracle.  The CUDA kernel itself is
 compared with the plain version on the card (``chip_smoke.py``, and the
 ``gpu``-marked test below).
 
-The kernels' band geometry (``band_geometry``) and their streaming
-decomposition are held here too: :func:`stream_pass_emulated` runs, in
-torch on the CPU, what each block of the CUDA core does (one band segment,
-its window read through the kernel's source, the k levels one row apart
-with the vertical operands kept per level, xm/xp from the level's previous
-row, the edge bits as a per-row history and per-column bits), and the
-tests hold it to the plain versions in f64.
+The kernels' band geometry (``band_geometry``, and K1's
+``k1_geometry``) and their streaming decomposition are held here too:
+:func:`stream_pass_emulated` runs, in torch on the CPU, what each block of
+the CUDA core does (one band segment, its window read through the
+kernel's source, the k levels one row apart with the vertical operands
+kept per level, xm/xp from the level's previous row, the edge bits as a
+per-row history and per-column bits), :func:`stream_pass_wide_emulated`
+what K1's wide body does (several columns a thread, the shuffles and the
+warps' exchange rows, the edge selects chosen per warp), and the tests
+hold both to the plain versions in f64.
 """
 
 import numpy as np
@@ -115,6 +118,114 @@ def stream_pass_emulated(load, row_bits, col_bits, ny, nx, k, weights, fixes,
                 r = wc * a + wym * ym + wyp * yp + wxm * xm + wxp * xp
                 m2[s - 1], m1[s - 1], v = a, v, r
             if i >= 2 * k:
+                rr = (y0 + i - 2 * k)[:, None].expand(tc.shape)
+                out[rr[keep], tc[keep]] = v[keep]
+                writes.index_put_((rr[keep], tc[keep]), torch.ones_like(rr[keep]),
+                                  accumulate=True)
+    assert bool((writes == 1).all()), "an output cell was not written exactly once"
+    return out
+
+
+def stream_pass_wide_emulated(load, row_bits, col_bits, ny, nx, k, weights, fixes, geo,
+                              bc_value=0.0):
+    """One pass of the core's wide body (``stream_band_wide``) emulated in
+    f64, as :func:`stream_pass_emulated` does the one-column body, with
+    ``geo`` (a :class:`K1Geometry`, ``cpt`` > 1) for the cut: ``cpt``
+    window columns a thread; all KB levels run (the least of 1, 2, 4, 8
+    that covers k) and the output is level k's row.  A thread's inner
+    columns take their x neighbours from its own registers, its outer
+    ones from the lane beside it (the shuffles), and lane 0 and lane 31
+    from the exchange rows: per parity and level, each warp's first and
+    last column at the core's indices (a warp's entries at 2(w+1) and
+    2(w+1)+1; lane 0 reads 2w+1, lane 31 2(w+2); the pads stay zero),
+    written one row earlier.  A fixed x side at a thread's first (last)
+    column replaces that column's xm (xp) in every warp; the other edge
+    selects run only in the warps whose block's rows, or whose inner
+    columns, hold a fixed side: the other warps run the select-free
+    arithmetic.  Asserts that every output cell is written by exactly one
+    block, and returns the (ny, nx) output."""
+    wc, wxm, wxp, wym, wyp = weights
+    fl, fr, fb, ft = fixes
+    w, cpt = geo.width, geo.cpt
+    assert cpt > 1 and w % (32 * cpt) == 0 and 2 * k < w
+    nw = w // (32 * cpt)
+    kb = next(b for b in (1, 2, 4, 8) if b >= k)
+    out = torch.zeros((ny, nx), dtype=torch.float64)
+    writes = torch.zeros((ny, nx), dtype=torch.int64)
+    col = torch.arange(w)
+    warp_of = torch.arange(nw)
+    # The exchange entries lane 0 / lane 31 of each warp write and read.
+    lo_w, hi_w = 2 * (warp_of + 1), 2 * (warp_of + 1) + 1
+    lo_r, hi_r = 2 * warp_of + 1, 2 * (warp_of + 2)
+
+    def ghost(fix, a):
+        if fix == _FIX_NEUMANN:
+            return a
+        return torch.full_like(a, bc_value if fix == _FIX_DIRICHLET else 0.0)
+
+    by_rows = {}
+    for by in range(geo.segments):
+        for bx in range(geo.bands):
+            y0 = by * geo.rows
+            by_rows.setdefault(min(geo.rows, ny - y0) + 2 * k, []).append(
+                (bx * (w - 2 * k), y0))
+    for rows, corners in by_rows.items():
+        nb = len(corners)
+        x0 = torch.tensor([c[0] for c in corners])
+        y0 = torch.tensor([c[1] for c in corners])
+        tc = x0[:, None] - k + col[None, :]
+        cb = col_bits(tc)
+        x_lo, x_hi = (cb & 1).bool(), (cb & 2).bool()
+        # The rows' bits decide for the block, the columns' for each warp:
+        # a fixed side at a thread's first (xm) or last (xp) column is taken
+        # in every warp; one at an inner column makes the warp an edge warp.
+        row_edges = torch.stack([row_bits(y0 - k + i) for i in range(rows)]).ne(0).any(0)
+        j = col % cpt
+        inner = (x_lo & (j != 0)[None, :]) | (x_hi & (j != cpt - 1)[None, :])
+        edge_warp = row_edges[:, None] | inner.view(nb, nw, 32 * cpt).any(2)
+        edge_col = edge_warp.repeat_interleave(32 * cpt, 1)
+        xch = torch.zeros((nb, 2, kb, 2 * (nw + 2)), dtype=torch.float64)
+        q = [[torch.zeros((nb, w), dtype=torch.float64) for _ in range(3)] for _ in range(kb)]
+        h_lo = h_hi = torch.zeros(nb, dtype=torch.int64)
+        keep = (col >= k) & (col < w - k) & (tc < nx)
+
+        def put_ends(par, level, r):
+            lanes = r.view(nb, nw, 32, cpt)
+            xch[:, par, level, lo_w] = lanes[:, :, 0, 0]
+            xch[:, par, level, hi_w] = lanes[:, :, 31, cpt - 1]
+
+        for i in range(rows):
+            par, now, one, two = i & 1, i % 3, (i + 2) % 3, (i + 1) % 3
+            q[0][now] = load(y0 - k + i, tc)
+            b = row_bits(y0 - k + i)
+            h_lo, h_hi = (h_lo << 1) | (b & 1), (h_hi << 1) | ((b >> 1) & 1)
+            put_ends(par, 0, q[0][now])
+            for s in range(1, kb + 1):
+                a, ym, yp = q[s - 1][one], q[s - 1][two], q[s - 1][now]
+                lanes = a.view(nb, nw, 32, cpt)
+                left = torch.roll(lanes[..., cpt - 1], 1, dims=2)  # __shfl_up_sync
+                right = torch.roll(lanes[..., 0], -1, dims=2)      # __shfl_down_sync
+                left[:, :, 0] = xch[:, par ^ 1, s - 1, lo_r]
+                right[:, :, 31] = xch[:, par ^ 1, s - 1, hi_r]
+                xm = torch.cat([left[..., None], lanes[..., :-1]], 3).reshape(nb, w)
+                xp = torch.cat([lanes[..., 1:], right[..., None]], 3).reshape(nb, w)
+                # every warp: the ghost beyond a thread's outer columns
+                xm = torch.where(x_lo & (j == 0)[None, :], ghost(fl, a), xm)
+                xp = torch.where(x_hi & (j == cpt - 1)[None, :], ghost(fr, a), xp)
+                r_free = wc * a + wym * ym + wyp * yp + wxm * xm + wxp * xp
+                ym = torch.where(((h_lo >> s) & 1).bool()[:, None], ghost(fb, a), ym)
+                yp = torch.where(((h_hi >> s) & 1).bool()[:, None], ghost(ft, a), yp)
+                xm = torch.where(x_lo, ghost(fl, a), xm)
+                xp = torch.where(x_hi, ghost(fr, a), xp)
+                r_edge = wc * a + wym * ym + wyp * yp + wxm * xm + wxp * xp
+                r = torch.where(edge_col, r_edge, r_free)
+                if s < kb:
+                    q[s][now] = r
+                    put_ends(par, s, r)
+                else:
+                    last = r
+            if i >= 2 * k:
+                v = last if k == kb else q[k][now]
                 rr = (y0 + i - 2 * k)[:, None].expand(tc.shape)
                 out[rr[keep], tc[keep]] = v[keep]
                 writes.index_put_((rr[keep], tc[keep]), torch.ones_like(rr[keep]),
@@ -303,13 +414,49 @@ def test_band_geometry_covers_every_output_once(shape, k):
     assert (owned == 1).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 8, 9, 16, 32])
+@pytest.mark.parametrize("shape", [(4096, 4096), (2048, 2048), (2009, 2001), (300, 40),
+                                   (40, 300), (8, 2048), (2048, 8), (64, 128), (1, 1),
+                                   (333, 241), (5000, 3), (512, 512)])
+def test_k1_geometry_covers_every_output_once(shape, k, dtype):
+    """K1's cut: up to WIDE_MAX_STEPS the wide body, whole warps of
+    WIDE_COLUMNS[dtype] columns a thread, at most WIDE_THREADS threads,
+    no band wider than one that holds the whole width with its halo,
+    segments of at least WIDE_MIN_ROWS rows (or the whole height) and no
+    more blocks than one wave of WIDE_WARPS_PER_SM warps an SM holds;
+    deeper passes fall back to band_geometry's one-column cut.  The bands'
+    outputs and the segments tile the field exactly once."""
+    ny, nx = shape
+    g = tcs.k1_geometry(ny, nx, k, dtype)
+    if k > tcs.WIDE_MAX_STEPS:
+        assert g == (*tcs.band_geometry(ny, nx, k), 1)
+    else:
+        cpt = tcs.WIDE_COLUMNS[dtype]
+        assert g.cpt == cpt and g.width % (32 * cpt) == 0
+        assert 2 * k < g.width <= tcs.WIDE_THREADS * cpt
+        assert g.width - 32 * cpt < max(nx + 2 * k, 2 * k + 1)  # no wider than needed
+        assert g.rows == ny or g.rows >= tcs.WIDE_MIN_ROWS
+        # one wave of WIDE_WARPS_PER_SM warps an SM at most
+        per_sm = tcs.WIDE_WARPS_PER_SM // (g.width // cpt // 32)
+        assert g.bands * g.segments <= tcs.SMS * per_sm or g.segments == 1
+    out_w = g.width - 2 * k
+    assert g.bands == -(-nx // out_w) and g.segments == -(-ny // g.rows)
+    owned = np.zeros((ny, nx), np.int64)
+    for by in range(g.segments):
+        for bx in range(g.bands):
+            owned[by * g.rows:(by + 1) * g.rows, bx * out_w:(bx + 1) * out_w] += 1
+    assert (owned == 1).all()
+
+
 def test_band_geometry_of_the_main_path():
-    """4096² at k = 8: 37 bands of 112 output columns, 64 segments of 64
-    rows; the 2048² tile: 19 x 32; K2's one step on it: 17 x 128 segments
+    """K1 at 4096² f32, k = 8: 18 bands of 240 output columns (64 threads
+    of 4 columns), 44 segments of 94 rows, one wave of 6 blocks an SM; the
+    2048² tile (K4/K5): 19 x 32; K2's one step on it: 17 x 128 segments
     of 16 rows.  Shapes with few blocks: the 512² dev grid halves its
     segments to 8 rows; K3's 8-row and 8-column bands of a 2048² tile
     narrow to one-warp bands and 8-row segments."""
-    assert tcs.band_geometry(4096, 4096, 8) == (128, 64, 37, 64)
+    assert tcs.k1_geometry(4096, 4096, 8, torch.float32) == (256, 94, 18, 44, 4)
     assert tcs.band_geometry(2048, 2048, 8) == (128, 64, 19, 32)
     assert tcs.band_geometry(2048, 2048, 1) == (128, 16, 17, 128)
     assert tcs.band_geometry(512, 512, 8) == (128, 8, 5, 64)
@@ -318,6 +465,74 @@ def test_band_geometry_of_the_main_path():
     assert tcs.band_geometry(64, 64, 32) == (96, 8, 2, 8)
     with pytest.raises(ValueError, match="band geometry"):
         tcs.band_geometry(64, 64, 33)
+
+
+@pytest.mark.parametrize("k, dtype, want", [
+    (8, torch.float32, (256, 94, 18, 44, 4)), (4, torch.float32, (384, 86, 11, 48, 4)),
+    (8, torch.bfloat16, (256, 94, 18, 44, 4)), (8, torch.float64, (192, 187, 24, 22, 2))])
+def test_k1_geometry_of_the_bench_grid(k, dtype, want):
+    """4096², the passes of bench_4096 (k = 8, and 4 for the remainder):
+    one wave of WIDE_WARPS_PER_SM warps on each SM, the halo's share
+    (1 + 2k/(width - 2k)) x (1 + 2k/rows) at most 1.33, under the
+    one-column cut's 1.45 at k = 8; a block's threads in whole warps."""
+    g = tcs.k1_geometry(4096, 4096, k, dtype)
+    assert g == want
+    threads = g.width // g.cpt
+    assert threads % 32 == 0
+    assert g.segments == tcs.SMS * (tcs.WIDE_WARPS_PER_SM // (threads // 32)) // g.bands
+    halo = g.bands * g.width * g.segments * (g.rows + 2 * k) / 4096**2
+    assert halo <= 1.33
+    old = tcs.band_geometry(4096, 4096, k)
+    assert halo < old.bands * old.width * old.segments * (old.rows + 2 * k) / 4096**2
+
+
+@pytest.mark.parametrize("n, dtype, want", [
+    (2048, torch.float32, (256, 24, 9, 86, 4)), (1024, torch.float32, (384, 12, 3, 86, 4)),
+    (512, torch.float32, (128, 5, 5, 103, 4)), (256, torch.float64, (64, 4, 6, 64, 2))])
+def test_k1_geometry_of_small_grids(n, dtype, want):
+    """Grids too small to fill the SMs' warps at k = 8 (dev.yaml's 512²,
+    parity_f64's 256²): the latency of each row's chain sets the pace, so
+    the cut keeps segments short rather than SMs full.  The chosen cut
+    costs least among every block size and every wave of whole blocks an
+    SM, the narrower and fewer blocks winning a tie."""
+    g = tcs.k1_geometry(n, n, 8, dtype)
+    assert g == want
+    cpt = tcs.WIDE_COLUMNS[dtype]
+    every = [tcs.wide_geometry(n, n, 8, cpt, t, m)
+             for t in range(32, tcs.WIDE_THREADS + 1, 32)
+             for m in range(1, tcs.WIDE_WARPS_PER_SM // (t // 32) + 1)]
+    assert tcs.wide_cost(g, 8) == min(tcs.wide_cost(c, 8) for c in every)
+    warps = -(-g.bands * g.segments // tcs.SMS) * (g.width // cpt // 32)
+    assert warps <= tcs.WIDE_WARPS_PER_SM
+
+
+def test_wide_cost_weighs_warps_against_the_chain():
+    """A row costs the busiest SM its warps plus WIDE_WARPS_PER_SM a wave
+    (the levels' chain): halving the segments of a grid with few warps an
+    SM costs less than its taller rows save, and on a full SM the taller
+    segment wins over two waves of shorter ones."""
+    few = tcs.K1Geometry(128, 8, 5, 64, 4)      # 320 one-warp blocks: 3 an SM
+    fewer = tcs.K1Geometry(128, 16, 5, 32, 4)   # 160: 2 an SM
+    assert tcs.wide_cost(few, 8) == 24 * (3 + tcs.WIDE_WARPS_PER_SM)
+    assert tcs.wide_cost(few, 8) < tcs.wide_cost(fewer, 8)
+    full = tcs.K1Geometry(256, 94, 18, 44, 4)   # 792 two-warp blocks: 12 warps an SM
+    half = tcs.K1Geometry(256, 47, 18, 88, 4)   # 24 warps an SM
+    assert tcs.wide_cost(full, 8) == 110 * 24 < tcs.wide_cost(half, 8) == 63 * (24 + 24)
+
+
+def test_wide_numbers_come_from_the_core():
+    """The wrapper's numbers for the wide body are the core's own
+    ``constexpr int`` lines (csrc/stencil_core.cuh), read at import."""
+    from climate_sim_tpu_torch.ops._build import core_constants
+
+    core = core_constants()
+    assert tcs.WIDE_COLUMNS == {torch.float32: core["WIDE_COLS"],
+                                torch.bfloat16: core["WIDE_COLS"],
+                                torch.float64: core["WIDE_COLS_F64"]}
+    assert tcs.WIDE_THREADS == core["WIDE_THREADS"] and tcs.MAX_BAND == core["MAX_BAND"]
+    assert tcs.WIDE_WARPS_PER_SM == core["WIDE_MIN_BLOCKS"] * core["WIDE_THREADS"] // 32
+    assert tcs.WIDE_MAX_STEPS == core["FAST_MAX"]
+    assert core["MAX_STEPS"] == tcs.MAX_STEPS_PER_PASS
 
 
 @pytest.mark.parametrize("k", [1, 3, 8])
@@ -354,6 +569,69 @@ def test_streamed_pass_matches_plain_f64_every_bc(shape, k, bc_class):
     got = stream_pass_emulated(*wrap_source(u, fixes), ny, nx, k, weights, fixes)
     want = tcs.multistep_pass_plain(u, tcfg, 0.1, k)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+
+
+def wide_case(nx, ny, bc_class, k, geometry, seed):
+    """(emulated wide pass, plain pass) of an edge-parked f64 field:
+    ``geometry`` is "f32" / "f64" (k1_geometry's cut for that dtype:
+    4 / 2 columns a thread) or "3 warps" (wide_geometry's 96-thread
+    blocks, 4 columns a thread, so the warps' ends meet inside a band)."""
+    _, tcfg = make_cfgs(nx, ny, bc_class)
+    u = torch.from_numpy(edge_parked(ny, nx, seed=seed))
+    fixes = [tcs._fix_code(b, tcfg.strict_reference_compat)
+             for b in (tcfg.bc.left, tcfg.bc.right, tcfg.bc.bottom, tcfg.bc.top)]
+    weights = tcs._stencil_weights(0.1, tcfg.D, tcfg.vx, tcfg.vy, tcfg.dx, tcfg.dy)
+    if geometry == "3 warps":
+        geo = tcs.wide_geometry(ny, nx, k, 4, 96)
+    else:
+        geo = tcs.k1_geometry(ny, nx, k, getattr(torch, {"f32": "float32",
+                                                         "f64": "float64"}[geometry]))
+    assert geo.cpt > 1
+    got = stream_pass_wide_emulated(*wrap_source(u, fixes), ny, nx, k, weights, fixes, geo)
+    return got, tcs.multistep_pass_plain(u, tcfg, 0.1, k)
+
+
+@pytest.mark.parametrize("geometry", ["f32", "f64", "3 warps"])
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("bc_class", ["one_sided_y", "one_sided_x", "both_axes", "compat"])
+@pytest.mark.parametrize("shape", [(40, 300), (300, 40)])
+def test_wide_streamed_pass_matches_plain_f64(shape, bc_class, k, geometry):
+    """The wide body's cut on the awkward shapes of the one-column tests:
+    bands wider than the grid, ragged last bands and segments."""
+    got, want = wide_case(*shape, bc_class, k, geometry, seed=k)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("geometry", ["f32", "f64", "3 warps"])
+@pytest.mark.parametrize("shape, k", [((128, 64), 8), ((241, 19), 8), ((333, 70), 4),
+                                      ((7, 20), 8), ((509, 45), 2), ((248, 20), 8)])
+@pytest.mark.parametrize("bc_class", list(BC_CLASSES))
+def test_wide_streamed_pass_matches_plain_f64_every_bc(shape, k, bc_class, geometry):
+    """Every BC class on nx not a multiple of 4 (241, 333, 509, 7), bands
+    wider than the grid (the window wraps onto itself) and k = 2 / 4 / 8;
+    at 248 wide the right side's column is the last of a warp whose other
+    columns hold no fixed side (3 warps)."""
+    got, want = wide_case(*shape, bc_class, k, geometry, seed=shape[0])
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+
+
+def test_wide_emulation_needs_the_column_bits():
+    """The x sides' selects matter to the emulation: with the column bits
+    hidden from it (every warp select-free in x), a Dirichlet / Neumann
+    pair of x sides no longer matches the plain pass."""
+    _, tcfg = make_cfgs(300, 40, "MIX1")
+    u = torch.from_numpy(edge_parked(40, 300, seed=1))
+    fixes = [tcs._fix_code(b, False)
+             for b in (tcfg.bc.left, tcfg.bc.right, tcfg.bc.bottom, tcfg.bc.top)]
+    weights = tcs._stencil_weights(0.1, tcfg.D, tcfg.vx, tcfg.vy, tcfg.dx, tcfg.dy)
+    load, row_bits, col_bits = wrap_source(u, fixes)
+    geo = tcs.wide_geometry(40, 300, 8, 4, 96)
+    want = tcs.multistep_pass_plain(u, tcfg, 0.1, 8)
+    got = stream_pass_wide_emulated(load, row_bits, col_bits, 40, 300, 8, weights, fixes, geo)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+    blind = stream_pass_wide_emulated(load, row_bits, lambda tc: torch.zeros_like(tc), 40,
+                                      300, 8, weights, fixes, geo)
+    assert float((blind - want).abs().max()) > 1e-3
 
 
 @pytest.fixture

@@ -7,7 +7,9 @@ interval of ``timing:``; under ``torch.profiler`` and with
 ``profile_dir`` the spans are ``user_annotation`` events of the chrome
 trace; ``k1.host_ns`` grows on K1's CUDA path (the stub library and
 ``cuda_like`` tensors of ``test_torch_coverage_gaps.py``) and never on the
-plain path; and ``climate.library`` notes a build and a load.
+plain path; ``k1.wide_launches`` and ``multistep_kernel_step.wide_launches``
+advance only on launches of K1's wide body; and ``climate.library`` notes
+a build and a load.
 """
 
 import contextlib
@@ -33,6 +35,7 @@ from test_torch_coverage_gaps import (  # noqa: F401  (fixtures)
     launch_env,
     make_cfg,
     needs_cc,
+    recorded,
     stub,
     stub_library,
 )
@@ -303,14 +306,48 @@ def test_k1_host_ns_grows_on_the_cuda_path(stub):
             seen.append(rec.counters["k1.host_ns"])
     assert tcs.multistep_kernel_step.launches == before + 3
     assert 0 < seen[0] < seen[1] < seen[2]
-    assert set(rec.counters) == {"k1.host_ns"} and rec.spans == []
+    # k = 3 runs the wide body, which has its own counter
+    assert set(rec.counters) == {"k1.host_ns", "k1.wide_launches"} and rec.spans == []
+    assert rec.counters["k1.wide_launches"] == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+def test_k1_wide_launches_count_only_the_wide_body(stub, dtype):
+    """Passes up to WIDE_MAX_STEPS run the wide body (cpt > 1) and count in
+    both counters; a deeper pass runs the one-column body and counts in
+    neither; each launch's band (k1_geometry's) reaches the C interface."""
+    cfg, u = make_cfg(100, 40), cuda_like(torch.rand(40, 100).to(dtype))
+    launches = tcs.multistep_kernel_step.launches
+    wide = tcs.multistep_kernel_step.wide_launches
+    with tracing.collect() as rec:
+        for k in (1, 3, 8, 9, 16, 32, 4):
+            tcs.multistep_kernel_step(u, cfg, 0.1, k)
+            geo = tcs.k1_geometry(40, 100, k, dtype)
+            assert (geo.cpt > 1) == (k <= tcs.WIDE_MAX_STEPS)
+            assert recorded(stub)[1][8:] == [geo.width, geo.rows, 0]  # 0: the stream
+    assert tcs.multistep_kernel_step.launches == launches + 7
+    assert tcs.multistep_kernel_step.wide_launches == wide + 4
+    assert rec.counters["k1.wide_launches"] == 4
+
+
+def test_k1_wide_launches_absent_while_tracing_is_off(stub):
+    cfg, u = make_cfg(100, 40), cuda_like(torch.rand(40, 100))
+    wide = tcs.multistep_kernel_step.wide_launches
+    tcs.multistep_kernel_step(u, cfg, 0.1, 8)
+    assert tcs.multistep_kernel_step.wide_launches == wide + 1
+    with tracing.collect() as rec:
+        tcs.multistep_kernel_step(u, cfg, 0.1, 16)  # the one-column body
+    assert "k1.wide_launches" not in rec.counters
+    assert tcs.multistep_kernel_step.wide_launches == wide + 1
 
 
 def test_k1_host_ns_never_on_the_plain_path():
     cfg = make_cfg(100, 40)
+    wide = tcs.multistep_kernel_step.wide_launches
     with tracing.collect() as rec:
         out = tcs.multistep_kernel_step(torch.rand(40, 100), cfg, 0.1, 3)
     assert out.shape == (40, 100) and rec.counters == {}
+    assert tcs.multistep_kernel_step.wide_launches == wide
 
 
 @needs_cc
