@@ -8,16 +8,20 @@ card (:mod:`ranks`).  Rank 0 decides what all do, phase by phase:
 1. ``setup``: one short job (it builds or loads the kernel library,
    brings up the process group and captures the chunk length every job
    uses), then one whole calibration job, whose wall sets the window's
-   number of jobs.
+   number of jobs.  With ``--trace 1`` each of the two runs inside the
+   program's ``collect()``, without the profiler, and what the program
+   recorded is kept (:func:`observed`).
 2. ``window``: that many jobs back to back, each one call of the program's
    entry point, timed on the host clock from before the first call to the
    return of the last, which returns after the cards are synchronised.
    The window is the longest rank's.  Each job's final field is kept on
    the card; the card's allocator peak is read after the first job
    returns and before its field is kept, so it is the program's own.
-3. ``trace`` (``--trace 1`` only): one more job of the window's shape
-   under the harness's own profiler, reduced to each card's summary
-   (:mod:`trace`).
+3. ``trace`` (``--trace 1`` only): :data:`REPEATS` more jobs of the
+   window's shape, each inside the program's ``collect()`` without the
+   profiler, then one inside it under the harness's own profiler, reduced
+   to each card's summary (:mod:`trace`); it hands back what the program
+   recorded in its observed jobs.
 4. ``check``: each kept field against the plain reference, computed again
    from the job's inputs (:mod:`reference`), tile by tile on each rank.
 """
@@ -28,7 +32,7 @@ import math
 import sys
 import tempfile
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import jobs
 import program
@@ -36,12 +40,34 @@ import reference
 import trace
 
 BANNED = ("jax", "jaxlib", "flax", "climate_sim_tpu")
+# Jobs of the window's shape observed without the profiler after the
+# window, besides the calibration job: per-call readings swing from job to
+# job, so their readers take the median of these and the calibration job.
+REPEATS = 8
 
 
 def banned_modules(modules: Sequence[str]) -> List[str]:
     """The banned top-level names among ``modules``, compared whole, so the
     port (``climate_sim_tpu_torch``) is not taken for the JAX package."""
     return sorted({m.split(".")[0] for m in modules} & set(BANNED))
+
+
+def observed(fn: Callable[[], object]) -> Tuple[object, dict]:
+    """(fn's result, what the program recorded while it ran), the latter a
+    plain dict: ``spans_s`` (seconds summed by span name), ``span_counts``
+    (spans of each name), ``counters``, and ``k1_launches``, K1's launches
+    counted meanwhile."""
+    before = program.k1_launches()
+    with program.collect() as record:
+        out = fn()
+    seconds: Dict[str, float] = {}
+    counts: Dict[str, int] = {}
+    for s in record.spans:
+        seconds[s.name] = seconds.get(s.name, 0.0) + s.seconds
+        counts[s.name] = counts.get(s.name, 0) + 1
+    return out, {"spans_s": seconds, "span_counts": counts,
+                 "counters": dict(record.counters),
+                 "k1_launches": program.k1_launches() - before}
 
 
 def rank_devices(kind: str, rank: int):
@@ -68,6 +94,7 @@ class Rank:
         self.scheme = reference.Scheme.from_config(config)
         self.kept = []    # (hotspot, the program's final field) of the window's jobs
         self.memory_peak = 0
+        self.program: Dict[str, object] = {}  # observed jobs, by phase
 
     def call(self, steps: int, spot, precision: Optional[str] = None):
         cfg = program.sim_config(self.config, self.traffic, steps, spot,
@@ -75,11 +102,21 @@ class Rank:
                                  output_dir=tempfile.gettempdir())
         return program.run(cfg, self.devices)
 
-    def setup(self) -> float:
-        """The warm-up job and the calibration job; the latter's wall."""
+    def setup(self, traced: bool = False) -> float:
+        """The warm-up job and the calibration job; the latter's wall.
+        ``traced``: each job is :func:`observed`, and kept as ``warmup`` and
+        as the first of ``jobs``."""
         warm, cal = jobs.hotspots(self.traffic, self.seed, "setup", 2)
-        self.call(int(self.traffic["warm_steps"]), warm)
-        _, _, wall = self.call(int(self.traffic["job_steps"]), cal)
+        warm_job = lambda: self.call(int(self.traffic["warm_steps"]), warm)
+        cal_job = lambda: self.call(int(self.traffic["job_steps"]), cal)
+        if not traced:
+            warm_job()
+            return cal_job()[2]
+        # each job's field is let go before the next starts, as untraced,
+        # so that the window's memory peak is the same with --trace 1
+        self.program["warmup"] = observed(warm_job)[1]
+        (_, _, wall), cal_seen = observed(cal_job)
+        self.program["jobs"] = [cal_seen]
         return wall
 
     def window(self, count: int) -> dict:
@@ -104,16 +141,20 @@ class Rank:
     def trace(self) -> dict:
         (spot,) = jobs.hotspots(self.traffic, self.seed, "trace", 1)
         steps = int(self.traffic["job_steps"])
+        for again in jobs.hotspots(self.traffic, self.seed, "trace", REPEATS, first=1):
+            # each job's field is let go before the next starts
+            self.program["jobs"].append(observed(lambda: self.call(steps, again)[1:])[1])
         before = program.stencil_launches()
-        (_, _, wall), events = trace.profile(lambda: self.call(steps, spot),
-                                             self.rank, self.cuda)
+        ((_, _, wall), self.program["trace"]), events = trace.profile(
+            lambda: observed(lambda: self.call(steps, spot)), self.rank, self.cuda)
         launches = program.stencil_launches() - before
-        cards = trace.card_summaries(events, program.stencil_kernel())
+        cards = trace.card_summaries(events, program.stencil_kernel(), program.prefix())
         for c in cards.values():
             c["rank"] = self.rank
             c["stencil_launches"] = launches / max(1, len(cards))
             c["points"] = self.scheme.nx * self.scheme.ny // self.cards_in_cell()
-        return {"wall_s": wall, "steps": steps, "cards": list(cards.values())}
+        return {"wall_s": wall, "steps": steps, "cards": list(cards.values()),
+                "program": self.program}
 
     def cards_in_cell(self) -> int:
         mesh = self.config.get("layout", {}).get("mesh")

@@ -1,7 +1,9 @@
 """What the harness takes from the program under test, and nothing more:
 its entry point (``runtime.driver.run_simulation``, the function that
 ``python -m climate_sim_tpu_torch`` calls), its config loader, the launch
-counters of its stencil kernel wrappers and that kernel's name.
+counters of its stencil kernel wrappers and that kernel's name, and its
+tracer (``runtime.tracing``): the spans and counters of the calls made
+inside :func:`collect`, and the prefix of their names.
 
 The program's log lines go to this process's standard error, so that the
 harness's own result stays the last line of standard output.
@@ -13,7 +15,7 @@ import contextlib
 import io
 import sys
 import time
-from typing import List, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 from reference import Hotspot
 
@@ -71,6 +73,33 @@ def stencil_launches() -> int:
     from climate_sim_tpu_torch.parallel.halo import _CHUNK_WRAPPERS
 
     return multistep_kernel_step.launches + sum(fn.launches for fn in _CHUNK_WRAPPERS)
+
+
+def k1_launches() -> int:
+    """K1's launches counted so far by its own wrapper alone
+    (``multistep_kernel_step``), apart from the mesh chunks' wrappers: what
+    the counter ``k1.host_ns`` is summed over."""
+    from climate_sim_tpu_torch.ops.cuda_stencil import multistep_kernel_step
+
+    return multistep_kernel_step.launches
+
+
+@contextlib.contextmanager
+def collect() -> Iterator[object]:
+    """The program's ``tracing.collect()``: tracing on for the block, which
+    gets the record its spans and counters fill."""
+    from climate_sim_tpu_torch.runtime import tracing
+
+    with tracing.collect() as record:
+        yield record
+
+
+def prefix() -> str:
+    """The prefix of the program's span names (``tracing.PREFIX``), which
+    its spans' annotations carry in a profiler's trace."""
+    from climate_sim_tpu_torch.runtime import tracing
+
+    return tracing.PREFIX
 
 
 def stencil_kernel() -> str:

@@ -22,6 +22,11 @@ The summary each metric reader gets:
   traced after it: its ``wall_s``, ``steps``, and
   ``cards``, one :func:`trace.card_summary` a card with its ``rank``, the
   ``stencil_launches`` its rank counted and the ``points`` it holds;
+* ``program`` (None with ``--trace 0``): what the program's own tracer
+  recorded, each a list with one entry a rank: in the set-up's ``warmup``
+  job and in the ``trace`` job one :func:`cell.observed` dict, and under
+  ``jobs`` a list of them, of the calibration job and the
+  :data:`cell.REPEATS` jobs observed before the traced one;
 * ``config``, ``traffic``, ``card`` (the device's name).
 
 Without a card, or with fewer than the cell asks for, it prints no result
@@ -82,7 +87,7 @@ def run_cell(layout: Layout, workload: str, seed: int, seconds: float, traced: b
     world = int(config.get("layout", {}).get("ranks", 1))
     group = Ranks(world, config, traffic, seed, kind)
     try:
-        cal = group.do("setup")[0]
+        cal = group.do("setup", traced)[0]
         count = jobs.job_count(seconds, cal)
         print(f"setup: calibration job {cal:.6f} s -> {count} jobs in the window",
               file=sys.stderr)
@@ -108,8 +113,8 @@ def run_cell(layout: Layout, workload: str, seed: int, seconds: float, traced: b
               "steps": count * int(traffic["job_steps"]),
               "points": int(config["grid"]["nx"]) * int(config["grid"]["ny"]),
               "lines": wins[0]["lines"]}
-    summary = {"setup_s": setup_s, "window": window, "trace": None, "config": config,
-               "traffic": traffic, "card": _card(kind)}
+    summary = {"setup_s": setup_s, "window": window, "trace": None, "program": None,
+               "config": config, "traffic": traffic, "card": _card(kind)}
     print(f"window: {window['jobs']} jobs, {window['steps']} steps in {window['wall_s']:.6f} s"
           f" ({window['wall_s'] / window['steps'] * 1e6:.6f} us a step); setup {setup_s:.3f} s",
           file=sys.stderr)
@@ -121,6 +126,8 @@ def run_cell(layout: Layout, workload: str, seed: int, seconds: float, traced: b
         cards = [c for t in traces for c in t["cards"]]
         summary["trace"] = {"wall_s": max(t["wall_s"] for t in traces),
                             "steps": traces[0]["steps"], "cards": cards}
+        summary["program"] = {job: [t["program"][job] for t in traces]
+                              for job in ("warmup", "jobs", "trace")}
         busy = [c["busy_us"] / 1e6 for c in cards]
         device["busy_s"] = sum(busy) / len(busy) if busy else 0.0
         device["window_s"] = summary["trace"]["wall_s"]
@@ -130,6 +137,14 @@ def run_cell(layout: Layout, workload: str, seed: int, seconds: float, traced: b
               f" busy {device['busy_s']:.6f} s a card; stencil events/launches by card "
               + ", ".join(f"{c['stencil_events']}/{c['stencil_launches']:g}" for c in cards),
               file=sys.stderr)
+        for c in cards:
+            print(f"trace: rank {c['rank']}: loop {c['loop_us']:.3f} us, busy"
+                  f" {c['loop_busy_us']:.3f} us in it, {c['loop_stencil_events']} stencil"
+                  f" events in it; idle by program span {c['span_gaps']}", file=sys.stderr)
+        for job, ranks in summary["program"].items():
+            for r, got in enumerate(ranks):
+                for i, one in enumerate(got if job == "jobs" else [got]):
+                    print(f"program: {job} {i} rank {r}: {one}", file=sys.stderr)
     metrics = layout.read(workload, "per_layer" if traced else "end_to_end", summary)
     limit = float(config["limits"]["max_err_rel"])
     for i, e in enumerate(errs):

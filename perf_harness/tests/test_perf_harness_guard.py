@@ -44,7 +44,8 @@ def test_banned_names_are_compared_whole():
 
 
 @pytest.mark.parametrize("name", ["gpoint_per_s", "setup_s", "stencil_roofline_pct",
-                                  "device_idle_pct"])
+                                  "device_idle_pct", "call_overhead_ms", "loop_idle_pct",
+                                  "launch_host_us", "first_call_s"])
 def test_each_metric_reader_leaves_jax_out(name):
     top = loaded_after([f"layout; layout.Layout({REPO!r}).reader({name!r})"])
     assert not top & BANNED

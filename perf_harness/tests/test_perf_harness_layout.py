@@ -7,8 +7,9 @@ import shutil
 import subprocess
 import sys
 
-from harness_tiny import HARNESS, REPO, tiny_layout
+from harness_tiny import HARNESS, REPO, add_mesh_cell, tiny_layout
 
+import cell  # noqa: E402
 import run  # noqa: E402
 from layout import Layout  # noqa: E402
 
@@ -70,9 +71,66 @@ def test_traced_dry_run_reports_the_per_layer_metrics_it_can_read(tmp_path):
     line = run.run_cell(Layout(str(tmp_path), harness), "bench4096.single", 5, 0.2, True,
                         kind="cpu")
     assert line["correct"] is True
-    # no device events on the CPU: the trace readers find nothing to read
-    assert line["metrics"] == {}
+    # the program's spans are read on the CPU; no device events and no K1
+    # launch there: the trace readers and launch_host_us find nothing to read
+    assert set(line["metrics"]) == {"call_overhead_ms", "first_call_s"}
+    assert line["metrics"]["call_overhead_ms"]["value"] > 0
+    assert line["metrics"]["first_call_s"]["value"] > 0
     assert line["device"]["busy_s"] == 0.0 and "breakdown" not in line
+
+
+def test_a_traced_cell_of_ranks_keeps_what_each_rank_recorded(tmp_path, monkeypatch):
+    harness = tiny_layout(str(tmp_path))
+    cell_name = add_mesh_cell(str(tmp_path), harness)
+    lay = Layout(str(tmp_path), harness)
+    seen = {}
+    real = lay.read
+
+    def keep(workload, kind, summary):
+        seen.update(summary)
+        return real(workload, kind, summary)
+
+    monkeypatch.setattr(lay, "read", keep)
+    line = run.run_cell(lay, cell_name, 7, 0.2, True, kind="cpu")
+    assert line["correct"] is True
+    program = seen["program"]
+    assert sorted(program) == ["jobs", "trace", "warmup"]
+    for job, ranks in program.items():
+        assert len(ranks) == 4, job
+        for got in ranks:
+            if job == "jobs":
+                # the calibration job and the repeats before the traced one
+                assert len(got) == 1 + cell.REPEATS
+            for r in got if job == "jobs" else [got]:
+                assert r["span_counts"]["climate.call"] == 1
+                assert r["spans_s"]["climate.call"] > r["spans_s"]["climate.loop"] > 0
+                assert r["k1_launches"] == 0  # no K1 launch is counted on the CPU
+
+
+def test_collect_passes_the_programs_record_through():
+    import program
+    from climate_sim_tpu_torch.runtime import tracing
+
+    with program.collect() as record:
+        with tracing.span(program.prefix() + "probe"):
+            tracing.add("probe", 3)
+    assert [s.name for s in record.spans] == ["climate.probe"]
+    assert record.counters == {"probe": 3}
+    assert not tracing.ON
+
+
+def test_an_untraced_run_enters_no_collect(tmp_path, monkeypatch):
+    import program
+
+    def refused():
+        raise AssertionError("collect() entered with --trace 0")
+
+    monkeypatch.setattr(program, "collect", refused)
+    harness = tiny_layout(str(tmp_path))
+    line = run.run_cell(Layout(str(tmp_path), harness), "bench4096.single", 6, 0.2, False,
+                        kind="cpu")
+    assert line["correct"] is True
+    assert set(line["metrics"]) == {"gpoint_per_s", "setup_s"}
 
 
 def test_the_command_without_a_card_prints_no_result():
