@@ -137,6 +137,8 @@ phase 5 and ``phase_bench``;
 ``python3 chip_smoke.py --graphs-only`` phases 1, 2, ``phase_graphs`` and
 phase 7's bench_4096 slab and 4001² carrier runs, each also under
 ``disable_graphs()``.
+``python3 chip_smoke.py --parity-only`` phases 1, 2 and ``phase_parity``
+(K1 in f64 with Dirichlet on all four sides at 4096², k = 8 and 4).
 ``--fuzz-seed N`` (with any of these, or alone) draws the fuzz from N
 instead of FUZZ_SEED.
 """
@@ -535,6 +537,50 @@ def phase_bench(torch, device, k1_ms):
           f" {shares['roofline']:.4f}, pass-schedule share {shares['pass-schedule']:.4f};"
           f" K1 launches {launches}; {time.perf_counter() - t0:.1f} s")
     return {n: launches if n == "K1" else 0 for n in KERNEL_NAMES}
+
+
+# The reference-parity deployment (configs/parity_f64.yaml at the 4096²
+# grid): K1's full and remainder passes of a 100-step span.
+PARITY_STEPS = (8, 4)
+
+
+def phase_parity(torch, device):
+    """``--parity-only``: K1 at 4096² in f64 with Dirichlet on all four
+    sides and the parity physics (v (0.5, 0)), k = 8 and 4, against its
+    plain version, with the cut it runs (``k1_cut_counter``); then each
+    pass in f64 and f32 timed by graph replay in turns with the same pass
+    under bench_4096's BCs (no fixed y side, so no block takes the wide
+    body's select path) and under P,P,D,N (fixed y sides, live x wrap).
+    Returns {"<dtype> k<k>": {BC class: [ms, ms]}}."""
+    from climate_sim_tpu_torch.ops import cuda_stencil as cs
+
+    nx = ny = BENCH_GRID
+    cfgs = {cls: make_cfg(nx, ny, cls) for cls in ("D4", "bench", "MIX2")}
+    for c in cfgs.values():
+        c.vy = 0.0
+    u = edge_parked(torch, ny, nx, seed=20, device=device)
+    for k in PARITY_STEPS:
+        cfg = cfgs["D4"]
+        got = cs.multistep_kernel_step(u, cfg, cfg.dt, k)
+        torch.cuda.synchronize(device)
+        err = float((got - cs.multistep_pass_plain(u, cfg, cfg.dt, k)).abs().max())
+        if not err <= ATOL["float64"]:
+            fail(f"K1 vs plain: parity {nx}x{ny} float64 k={k}: max abs err {err:.3g}")
+        print(f"[parity] {nx}x{ny} float64, Dirichlet on all sides, k={k}:"
+              f" {cs.k1_cut_counter(ny, nx, k, torch.float64)}; max abs err {err:.3g}")
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        v = u.to(dtype)
+        name = str(dtype).removeprefix("torch.")
+        for k in PARITY_STEPS:
+            fns = {cls: lambda c=c: cs.multistep_kernel_step(v, c, c.dt, k)
+                   for cls, c in cfgs.items()}
+            ms = out[f"{name} k{k}"] = in_turns(
+                torch, device, fns, ("D4", "bench", "MIX2", "MIX2", "bench", "D4"),
+                dict.fromkeys(fns, 60), graphed=tuple(fns))
+            print(f"[parity] {nx}x{ny} {name} k={k} by BC class, ms per pass: " + ", ".join(
+                f"{cls} {' / '.join(f'{t:.4f}' for t in ts)}" for cls, ts in ms.items()))
+    return out
 
 
 def bench_after_timing(torch, device, tmp):
@@ -2387,6 +2433,9 @@ def main() -> int:
         return multiprocess_only(torch, device, args[0] == "--nccl-only")
     if args == ["--graphs-only"]:
         return graphs_only(torch, device)
+    if args == ["--parity-only"]:
+        print(json.dumps({"parity": phase_parity(torch, device)}))
+        return 0
     for flag, phase in (("--tools-only", phase_tools), ("--study-only", phase_study),
                         ("--latency-only", phase_latency),
                         ("--bench-only", bench_after_timing)):

@@ -34,6 +34,7 @@ from .boundary import pad_with_ghosts
 # Side codes of the C interface (csrc/multistep_stencil.cu).
 _FIX_NONE, _FIX_DIRICHLET, _FIX_NEUMANN, _FIX_ZERO = 0, 1, 2, 3
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+_DTYPE_NAMES = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 MAX_STEPS_PER_PASS = 32
 # The core's limits (csrc/stencil_core.cuh, read from the header).
 _CORE = core_constants()
@@ -169,6 +170,17 @@ def k1_geometry(ny: int, nx: int, k: int, dtype: torch.dtype) -> K1Geometry:
     return best
 
 
+@functools.lru_cache(maxsize=256)
+def k1_cut_counter(ny: int, nx: int, k: int, dtype: torch.dtype) -> str:
+    """The counter that K1's launches at this cut add to while tracing is
+    on: ``k1.cut.<dtype>.k<k>.c<columns a thread>.t<block threads>
+    .b<bands>.s<segments>.r<rows>``, from :func:`k1_geometry`, so that a
+    trace says which cut ran."""
+    g = k1_geometry(ny, nx, k, dtype)
+    return (f"k1.cut.{_DTYPE_NAMES[dtype]}.k{k}.c{g.cpt}.t{g.width // g.cpt}"
+            f".b{g.bands}.s{g.segments}.r{g.rows}")
+
+
 def _stencil_weights(dt, D, vx, vy, dx, dy):
     """The unsplit Euler update collapsed to a 5-point weighted stencil:
     u' = wc*c + wxm*xm + wxp*xp + wym*ym + wyp*yp (upwind signs resolved
@@ -299,7 +311,8 @@ def multistep_kernel_step(
     (:func:`k1_geometry`'s ``cpt`` > 1); while tracing is on, the counter
     ``k1.host_ns`` adds the host time of each launch from entry to the C
     call (which blocks while the launch queue is full, so it is left out),
-    and ``k1.wide_launches`` counts the wide launches.
+    ``k1.wide_launches`` counts the wide launches, and the counter of the
+    launch's cut (:func:`k1_cut_counter`) counts each launch.
     """
     traced = tracing.ON
     if traced:
@@ -333,6 +346,8 @@ def multistep_kernel_step(
         msg = lib.climate_cuda_error_string(err).decode()
         raise RuntimeError(f"K1 launch failed: CUDA error {err} ({msg})")
     multistep_kernel_step.launches += 1
+    if traced:
+        tracing.add(k1_cut_counter(cfg.ny, cfg.nx, k, u.dtype), 1)
     if geo.cpt > 1:
         multistep_kernel_step.wide_launches += 1
         if traced:

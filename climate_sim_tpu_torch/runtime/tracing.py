@@ -30,7 +30,8 @@ The names (all under :data:`PREFIX`) and where the driver opens them:
 or load, once a process; its note says which).  The counter
 ``k1.host_ns`` holds K1's host nanoseconds a launch up to the C call,
 ``k1.wide_launches`` K1's launches of the wide body, several columns a
-thread (``ops/cuda_stencil.py``).
+thread, and ``k1.cut.<dtype>.k<k>.c<columns>.t<threads>.b<bands>.s<segments>
+.r<rows>`` K1's launches at that cut (``ops/cuda_stencil.py``).
 """
 
 from __future__ import annotations

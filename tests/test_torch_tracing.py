@@ -8,8 +8,9 @@ interval of ``timing:``; under ``torch.profiler`` and with
 trace; ``k1.host_ns`` grows on K1's CUDA path (the stub library and
 ``cuda_like`` tensors of ``test_torch_coverage_gaps.py``) and never on the
 plain path; ``k1.wide_launches`` and ``multistep_kernel_step.wide_launches``
-advance only on launches of K1's wide body; and ``climate.library`` notes
-a build and a load.
+advance only on launches of K1's wide body; each launch counts under the
+name of its cut (``k1.cut.*``); and ``climate.library`` notes a build and
+a load.
 """
 
 import contextlib
@@ -62,8 +63,9 @@ def quiet_run(cfg, devices=("cpu",)):
 
 @pytest.fixture
 def forbidden(monkeypatch):
-    """The tracer's clock, the profiler check and ``record_function`` all
-    raise: nothing may call them while tracing is off."""
+    """The tracer's clock, the profiler check, ``record_function`` and the
+    name of K1's cut counter all raise: nothing may call them while tracing
+    is off."""
 
     def boom(*args, **kw):
         raise AssertionError("called while tracing is off")
@@ -71,6 +73,7 @@ def forbidden(monkeypatch):
     monkeypatch.setattr(tracing, "clock", boom)
     monkeypatch.setattr(torch.autograd, "_profiler_enabled", boom)
     monkeypatch.setattr(torch.profiler, "record_function", boom)
+    monkeypatch.setattr(tcs, "k1_cut_counter", boom)
 
 
 def test_off_span_is_one_shared_noop(forbidden):
@@ -306,9 +309,10 @@ def test_k1_host_ns_grows_on_the_cuda_path(stub):
             seen.append(rec.counters["k1.host_ns"])
     assert tcs.multistep_kernel_step.launches == before + 3
     assert 0 < seen[0] < seen[1] < seen[2]
-    # k = 3 runs the wide body, which has its own counter
-    assert set(rec.counters) == {"k1.host_ns", "k1.wide_launches"} and rec.spans == []
-    assert rec.counters["k1.wide_launches"] == 3
+    # k = 3 runs the wide body, which has its own counter, and its cut one
+    cut = tcs.k1_cut_counter(40, 100, 3, torch.float32)
+    assert set(rec.counters) == {"k1.host_ns", "k1.wide_launches", cut} and rec.spans == []
+    assert rec.counters["k1.wide_launches"] == rec.counters[cut] == 3
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
@@ -330,6 +334,31 @@ def test_k1_wide_launches_count_only_the_wide_body(stub, dtype):
     assert rec.counters["k1.wide_launches"] == 4
 
 
+@pytest.mark.parametrize("dtype,name", [(torch.float32, "f32"), (torch.float64, "f64"),
+                                        (torch.bfloat16, "bf16")])
+def test_k1_cut_counters_name_the_cut_that_ran(stub, dtype, name):
+    """Each launch adds 1 to the counter of its cut, whose name spells out
+    k1_geometry's: dtype, k, columns a thread, block threads, bands,
+    segments, rows; the same cut counts in one counter."""
+    cfg, u = make_cfg(100, 40), cuda_like(torch.rand(40, 100).to(dtype))
+    with tracing.collect() as rec:
+        for k in (8, 8, 4, 16):
+            tcs.multistep_kernel_step(u, cfg, 0.1, k)
+    cuts = {k: tcs.k1_cut_counter(40, 100, k, dtype) for k in (8, 4, 16)}
+    assert {c: n for c, n in rec.counters.items() if c.startswith("k1.cut.")} == {
+        cuts[8]: 2, cuts[4]: 1, cuts[16]: 1}
+    for k, cut in cuts.items():
+        g = tcs.k1_geometry(40, 100, k, dtype)
+        assert cut == (f"k1.cut.{name}.k{k}.c{g.cpt}.t{g.width // g.cpt}"
+                       f".b{g.bands}.s{g.segments}.r{g.rows}")
+    assert cuts[16].split(".")[4] == "c1" and cuts[8].split(".")[4] != "c1"
+
+
+def test_k1_cut_counter_of_the_parity_grid():
+    """4096² f64 at k = 8: two columns a thread, as the parity cell runs."""
+    assert tcs.k1_cut_counter(4096, 4096, 8, torch.float64).startswith("k1.cut.f64.k8.c2.")
+
+
 def test_k1_wide_launches_absent_while_tracing_is_off(stub):
     cfg, u = make_cfg(100, 40), cuda_like(torch.rand(40, 100))
     wide = tcs.multistep_kernel_step.wide_launches
@@ -339,6 +368,9 @@ def test_k1_wide_launches_absent_while_tracing_is_off(stub):
         tcs.multistep_kernel_step(u, cfg, 0.1, 16)  # the one-column body
     assert "k1.wide_launches" not in rec.counters
     assert tcs.multistep_kernel_step.wide_launches == wide + 1
+    # the k = 8 launch, made with tracing off, left no cut counter behind
+    assert [c for c in rec.counters if c.startswith("k1.cut.")] == [
+        tcs.k1_cut_counter(40, 100, 16, torch.float32)]
 
 
 def test_k1_host_ns_never_on_the_plain_path():
