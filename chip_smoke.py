@@ -138,7 +138,8 @@ phase 5 and ``phase_bench``;
 phase 7's bench_4096 slab and 4001² carrier runs, each also under
 ``disable_graphs()``.
 ``python3 chip_smoke.py --parity-only`` phases 1, 2 and ``phase_parity``
-(K1 in f64 with Dirichlet on all four sides at 4096², k = 8 and 4).
+(K1 in f64 with Dirichlet on all four sides at 4096², k = 8 and 4, against
+its plain version; each pass's output digest and time by BC class).
 ``--fuzz-seed N`` (with any of these, or alone) draws the fuzz from N
 instead of FUZZ_SEED.
 """
@@ -146,6 +147,7 @@ instead of FUZZ_SEED.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -551,7 +553,9 @@ def phase_parity(torch, device):
     pass in f64 and f32 timed by graph replay in turns with the same pass
     under bench_4096's BCs (no fixed y side, so no block takes the wide
     body's select path) and under P,P,D,N (fixed y sides, live x wrap).
-    Returns {"<dtype> k<k>": {BC class: [ms, ms]}}."""
+    Each pass's output is printed as a SHA-256 digest, so that two
+    checkouts' kernels can be held to each other bit for bit.  Returns
+    {"<dtype> k<k>": {BC class: [ms, ms]}}."""
     from climate_sim_tpu_torch.ops import cuda_stencil as cs
 
     nx = ny = BENCH_GRID
@@ -567,7 +571,9 @@ def phase_parity(torch, device):
         if not err <= ATOL["float64"]:
             fail(f"K1 vs plain: parity {nx}x{ny} float64 k={k}: max abs err {err:.3g}")
         print(f"[parity] {nx}x{ny} float64, Dirichlet on all sides, k={k}:"
-              f" {cs.k1_cut_counter(ny, nx, k, torch.float64)}; max abs err {err:.3g}")
+              f" {cs.k1_cut_counter(ny, nx, k, torch.float64)}, select rows"
+              f" {cs.k1_select_rows(ny, nx, k, torch.float64, 1, 1)} a launch;"
+              f" max abs err {err:.3g}")
     out = {}
     for dtype in (torch.float64, torch.float32):
         v = u.to(dtype)
@@ -575,6 +581,9 @@ def phase_parity(torch, device):
         for k in PARITY_STEPS:
             fns = {cls: lambda c=c: cs.multistep_kernel_step(v, c, c.dt, k)
                    for cls, c in cfgs.items()}
+            for cls, fn in fns.items():
+                digest = hashlib.sha256(fn().cpu().numpy().tobytes()).hexdigest()[:16]
+                print(f"[parity] digest {name} k={k} {cls}: {digest}")
             ms = out[f"{name} k{k}"] = in_turns(
                 torch, device, fns, ("D4", "bench", "MIX2", "MIX2", "bench", "D4"),
                 dict.fromkeys(fns, 60), graphed=tuple(fns))

@@ -44,7 +44,9 @@
 // bits are computed once per thread; row bits once per row and shifted
 // into a 64-bit history, so level s reads bit s (warp-uniform).  A block
 // whose window touches no fixed side runs an instantiation without any
-// select (decided once per block; level counts up to FAST_MAX).
+// select (decided once per block; level counts up to FAST_MAX).  A bit
+// row e reaches level s at iteration e + s, so its selects can fire only
+// on the KB iterations after it.
 //
 // k.  The levels' registers need a compile-time count, so the core is
 // instantiated for 1, 2, 4, 8, 16 and 32 levels and a pass runs the least
@@ -74,15 +76,19 @@
 // against three shared accesses an update in the one-column body.  Rows
 // arrive as above, one 16-byte cp.async a thread where its columns are
 // 16 aligned bytes of the field (f32, f64), else a copy an element.  The
-// edge rule is the same, but decided per warp: a fixed x side at a
-// thread's first or last column only replaces that outer neighbour (one
-// select a level), and only the warps with a fixed side's row in their
-// block or at an inner column run the copy of the loop with the selects;
-// the two copies meet at one barrier a row (barrier.sync without
-// .aligned).  Its loop body covers three rows, the registers' rotation;
-// ring slot and parity step at run time, which keeps the loop small
-// enough for the instruction cache (a six-row body of four columns ran
-// at less than half the speed).  The launch bounds hold it to 170
+// edge rule is the same, but decided per warp and range of rows: a fixed
+// x side at a thread's first or last column only replaces that outer
+// neighbour (one select a level); the warps with one at an inner column
+// run the copy of the loop with the selects on every row, the others only
+// on the rows that a fixed side's row can reach (from the block's first
+// window row with edge bits to KB rows past its last, on the loop's
+// rotation), and a copy without them on the rest.  A warp with no such
+// row runs an instantiation that holds only the copy without selects.
+// The copies meet at one barrier a row (barrier.sync without .aligned).
+// Its loop body covers three rows, the registers' rotation; ring slot and
+// parity step at run time, which keeps the loop small enough for the
+// instruction cache (a six-row body of four columns ran at less than half
+// the speed).  The launch bounds hold it to 170
 // registers, so three blocks of 128 threads (12 warps) fit an SM; the
 // wrapper cuts the field into one wave of blocks
 // (ops/cuda_stencil.py::k1_geometry), since on the H100 the warps an SM
@@ -478,16 +484,17 @@ __device__ __forceinline__ void wide_sync() {
 // warp's end column that it wrote to the exchange rows one row earlier.
 // All of a row's shuffles and exchange reads come first, off the levels'
 // chain, and a fixed x side at a thread's outer column replaces that
-// neighbour there.  EDGES: this warp holds a fixed side's column at an
-// inner column, or its block a fixed side's row, and runs every select;
-// the other warps run a copy of the loop without them.  The loop body
-// covers three rows, the registers' rotation; the ring slot and the
-// exchange parity step at run time.
-template <typename T, typename C, int KB, int CPT, bool EDGES, typename Source>
+// neighbour there.  SELECTS: window rows [lo, hi) run every select
+// (band_kernel sets the range: the rows a fixed side's row reaches, or
+// every row in a warp with a fixed side's column at an inner column) and
+// the rest a copy of the loop without them; without SELECTS every row runs
+// that copy.  The loop body covers three rows, the registers' rotation;
+// the ring slot and the exchange parity step at run time.
+template <typename T, typename C, int KB, int CPT, bool SELECTS, typename Source>
 __device__ __forceinline__ void stream_band_wide(const Source& src, T* __restrict__ out,
                                                  const Pass& p, unsigned char* smem,
                                                  int y0, int rows, int tc0,
-                                                 unsigned colbits) {
+                                                 unsigned colbits, int lo, int hi) {
   using W = typename Word<T>::type;
   constexpr bool kWidened = !std::is_same<T, C>::value;
   // One 16-byte copy brings a thread's columns where they are 16 bytes of
@@ -553,7 +560,7 @@ __device__ __forceinline__ void stream_band_wide(const Source& src, T* __restric
     cp_async_commit();
   }
 
-  int bits_row = src.row_start(y0 - k);
+  int bits_row = 0;
   unsigned long long h_lo = 0, h_hi = 0;  // bit s: row i - s's edge bits
   // q[s][i % 3][j]: level s's row computed at iteration i (row i - s).
   C q[KB][3][CPT];
@@ -578,9 +585,10 @@ __device__ __forceinline__ void stream_band_wide(const Source& src, T* __restric
   int slot = 0;        // ring slot of row i: i mod RING
   C* cur = xch;        // exchange rows written at row i (parity i & 1) ...
   C* old = xch + KB * SL;  // ... and those of row i - 1
-  auto row = [&](int i, auto u) {
+  auto row = [&](int i, auto u, auto edges) {
     constexpr int U = decltype(u)::value;
     constexpr int NOW = U, ONE = (U + 2) % 3, TWO = (U + 1) % 3;
+    constexpr bool EDGES = decltype(edges)::value;
     cp_async_wait<AHEAD - 1>();
     wide_sync();
     {
@@ -673,10 +681,37 @@ __device__ __forceinline__ void stream_band_wide(const Source& src, T* __restric
     old = t;
   };
 
-  for (int i = 0; i < rows; i += 3) {
-    row(i, std::integral_constant<int, 0>{});
-    if (i + 1 < rows) row(i + 1, std::integral_constant<int, 1>{});
-    if (i + 2 < rows) row(i + 2, std::integral_constant<int, 2>{});
+  constexpr std::false_type kFree{};
+  constexpr std::true_type kEdges{};
+  if constexpr (!SELECTS) {
+    for (int i = 0; i < rows; i += 3) {
+      row(i, std::integral_constant<int, 0>{}, kFree);
+      if (i + 1 < rows) row(i + 1, std::integral_constant<int, 1>{}, kFree);
+      if (i + 2 < rows) row(i + 2, std::integral_constant<int, 2>{}, kFree);
+    }
+  } else {
+    // Rows [0, lo) and [hi, rows) run the copy of the loop without the
+    // selects, [lo, hi) the copy with them; lo and hi keep the rotation (lo
+    // a multiple of 3, hi too or rows), and the rows before lo hold no edge
+    // bits, so the history starts empty at lo.
+    int i = 0, stop = lo;
+#pragma unroll 1
+    for (;;) {
+      for (; i < stop; i += 3) {
+        row(i, std::integral_constant<int, 0>{}, kFree);
+        if (i + 1 < stop) row(i + 1, std::integral_constant<int, 1>{}, kFree);
+        if (i + 2 < stop) row(i + 2, std::integral_constant<int, 2>{}, kFree);
+      }
+      if (i >= rows) break;
+      bits_row = src.row_start(y0 - k + lo);
+      h_lo = h_hi = 0;
+      for (; i < hi; i += 3) {
+        row(i, std::integral_constant<int, 0>{}, kEdges);
+        if (i + 1 < hi) row(i + 1, std::integral_constant<int, 1>{}, kEdges);
+        if (i + 2 < hi) row(i + 2, std::integral_constant<int, 2>{}, kEdges);
+      }
+      stop = rows;
+    }
   }
 }
 
@@ -702,13 +737,14 @@ __global__ void __launch_bounds__(CPT == 1 ? MAX_BAND : WIDE_THREADS,
   for (int i = threadIdx.x; i < words; i += blockDim.x) {
     reinterpret_cast<uint32_t*>(smem)[i] = 0u;
   }
-  unsigned colbits = 0, rowbits = 0;
+  unsigned colbits = 0;
 #pragma unroll
   for (int j = 0; j < CPT; ++j) colbits |= src.col_bits(tc + j) << (2 * j);
-  for (int j = threadIdx.x; j < rows; j += blockDim.x) {
-    rowbits |= src.row_bits(src.row_start(y0 - k + j));
-  }
   if constexpr (CPT == 1) {
+    unsigned rowbits = 0;
+    for (int j = threadIdx.x; j < rows; j += blockDim.x) {
+      rowbits |= src.row_bits(src.row_start(y0 - k + j));
+    }
     const bool edges = __syncthreads_or((colbits | rowbits) != 0u);
     if constexpr (KB <= FAST_MAX) {
       if (!edges) {
@@ -718,16 +754,41 @@ __global__ void __launch_bounds__(CPT == 1 ? MAX_BAND : WIDE_THREADS,
     }
     stream_band<T, C, KB, true>(src, out, p, smem, y0, rows, tc, colbits);
   } else {
-    // The rows' bits decide for the block, the columns' for each warp: a
-    // fixed x side at a thread's first or last column costs one select a
-    // level (its outer neighbour is the ghost); one at an inner column
-    // takes the selects of every column.
+    // The rows' bits decide for the block which rows take the selects, the
+    // columns' for each warp: a fixed x side at a thread's first or last
+    // column costs one select a level (its outer neighbour is the ghost);
+    // one at an inner column takes the selects of every column and row.
+    // Level s reads row i - s's bits at iteration i, so a bit row e can
+    // select only on iterations e + 1 .. e + KB: the selects run from the
+    // first bit row (rounded down to the loop's three-row rotation) to KB
+    // rows past the last (rounded up), and every other row runs without.
+    // Each warp finds the window's first and last row with edge bits by
+    // itself, with no shared memory and no second barrier.
+    int first = rows, last = -1;
+    for (int j = threadIdx.x & 31; j < rows; j += 32) {
+      if (src.row_bits(src.row_start(y0 - k + j)) != 0u) {
+        first = min(first, j);
+        last = j;
+      }
+    }
+    first = __reduce_min_sync(0xffffffffu, first);
+    last = __reduce_max_sync(0xffffffffu, last);
+    __syncthreads();  // the zeroed layout before the first loads
     constexpr unsigned outer = 1u | (1u << (2 * CPT - 1));
-    const bool row_edges = __syncthreads_or(rowbits != 0u);
-    if (row_edges || __any_sync(0xffffffffu, (colbits & ~outer) != 0u)) {
-      stream_band_wide<T, C, KB, CPT, true>(src, out, p, smem, y0, rows, tc, colbits);
+    int lo = rows, hi = rows;  // no bit row: no selects
+    if (__any_sync(0xffffffffu, (colbits & ~outer) != 0u)) {
+      lo = 0;
+    } else if (last >= 0) {
+      lo = first / 3 * 3;
+      hi = min(rows, (last + KB + 3) / 3 * 3);
+    }
+    // A warp with no row to select runs an instantiation of its own, the
+    // loop without selects alone, which kept the select-free passes as fast
+    // as before on the H100 where the other layouts tried did not (PERF.md).
+    if (lo >= rows) {
+      stream_band_wide<T, C, KB, CPT, false>(src, out, p, smem, y0, rows, tc, colbits, lo, hi);
     } else {
-      stream_band_wide<T, C, KB, CPT, false>(src, out, p, smem, y0, rows, tc, colbits);
+      stream_band_wide<T, C, KB, CPT, true>(src, out, p, smem, y0, rows, tc, colbits, lo, hi);
     }
   }
 }

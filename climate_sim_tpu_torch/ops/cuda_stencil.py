@@ -181,6 +181,49 @@ def k1_cut_counter(ny: int, nx: int, k: int, dtype: torch.dtype) -> str:
             f".b{g.bands}.s{g.segments}.r{g.rows}")
 
 
+def select_span(first: int, last: int, rows: int, levels: int) -> tuple:
+    """The window rows ``[lo, hi)`` on which a block of K1's wide body runs
+    the selects of the fixed bottom and top sides, as the kernel sets them
+    (``stencil_core.cuh::band_kernel``): ``first`` and ``last`` are the
+    first and last of the block's ``rows`` window rows with edge bits
+    (``last`` < 0: none, and no row selects), ``levels`` the kernel's level
+    count.  A bit row e reaches level s at iteration e + s, so the span runs
+    from ``first`` rounded down to the loop's three-row rotation to
+    ``levels`` rows past ``last``, rounded up, at most to ``rows``."""
+    if last < 0:
+        return rows, rows
+    return first // 3 * 3, min(rows, (last + levels + 3) // 3 * 3)
+
+
+@functools.lru_cache(maxsize=256)
+def k1_select_rows(ny: int, nx: int, k: int, dtype: torch.dtype, fix_bottom: int,
+                   fix_top: int) -> int:
+    """The window rows that one K1 launch's blocks run on the copy of the
+    loop with the selects because a bottom or top side is fixed (side codes
+    ``fix_bottom``, ``fix_top``; 0 is live periodic), summed over the
+    blocks: :func:`select_span` on each block of :func:`k1_geometry`'s cut,
+    and on the one-column body (k > WIDE_MAX_STEPS) every window row of a
+    block whose window holds a fixed side's row.  Rows that a warp runs
+    with selects because of a fixed x side are not counted."""
+    if not (fix_bottom or fix_top):
+        return 0
+    g = k1_geometry(ny, nx, k, dtype)
+    levels = 1 << (k - 1).bit_length()
+    total = 0
+    for y0 in range(0, ny, g.rows):
+        rows = min(g.rows, ny - y0) + 2 * k
+        bit_rows = [j for j in range(rows) if (fix_bottom and (y0 - k + j) % ny == 0)
+                    or (fix_top and (y0 - k + j) % ny == ny - 1)]
+        if not bit_rows:
+            continue
+        if g.cpt == 1:
+            total += rows
+        else:
+            lo, hi = select_span(bit_rows[0], bit_rows[-1], rows, levels)
+            total += hi - lo
+    return total * g.bands
+
+
 def _stencil_weights(dt, D, vx, vy, dx, dy):
     """The unsplit Euler update collapsed to a 5-point weighted stencil:
     u' = wc*c + wxm*xm + wxp*xp + wym*ym + wyp*yp (upwind signs resolved
@@ -311,8 +354,10 @@ def multistep_kernel_step(
     (:func:`k1_geometry`'s ``cpt`` > 1); while tracing is on, the counter
     ``k1.host_ns`` adds the host time of each launch from entry to the C
     call (which blocks while the launch queue is full, so it is left out),
-    ``k1.wide_launches`` counts the wide launches, and the counter of the
-    launch's cut (:func:`k1_cut_counter`) counts each launch.
+    ``k1.wide_launches`` counts the wide launches, the counter of the
+    launch's cut (:func:`k1_cut_counter`) counts each launch, and
+    ``k1.select_rows`` adds the window rows its blocks run with the fixed
+    y sides' selects (:func:`k1_select_rows`).
     """
     traced = tracing.ON
     if traced:
@@ -348,6 +393,8 @@ def multistep_kernel_step(
     multistep_kernel_step.launches += 1
     if traced:
         tracing.add(k1_cut_counter(cfg.ny, cfg.nx, k, u.dtype), 1)
+        tracing.add("k1.select_rows",
+                    k1_select_rows(cfg.ny, cfg.nx, k, u.dtype, fixes[2], fixes[3]))
     if geo.cpt > 1:
         multistep_kernel_step.wide_launches += 1
         if traced:

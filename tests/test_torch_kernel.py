@@ -48,8 +48,15 @@ BC_CLASSES = {
 }
 
 
+# Classes with one fixed y side, for the wide body's select span.
+Y_SIDES = {
+    "bottom_only": ((P, P, D, P), False),
+    "top_only": ((P, P, P, N), False),
+}
+
+
 def make_cfgs(nx, ny, bc_class, *, D_=0.05, vx=0.5, vy=-0.25, **kw):
-    bcs, compat = BC_CLASSES[bc_class]
+    bcs, compat = {**BC_CLASSES, **Y_SIDES}[bc_class]
     out = []
     for mod in (jconfig, tconfig):
         cfg = mod.SimConfig(nx=nx, ny=ny, D=D_, vx=vx, vy=vy, dt=0.1, **kw)
@@ -127,7 +134,7 @@ def stream_pass_emulated(load, row_bits, col_bits, ny, nx, k, weights, fixes,
 
 
 def stream_pass_wide_emulated(load, row_bits, col_bits, ny, nx, k, weights, fixes, geo,
-                              bc_value=0.0):
+                              bc_value=0.0, spans=None):
     """One pass of the core's wide body (``stream_band_wide``) emulated in
     f64, as :func:`stream_pass_emulated` does the one-column body, with
     ``geo`` (a :class:`K1Geometry`, ``cpt`` > 1) for the cut: ``cpt``
@@ -140,10 +147,12 @@ def stream_pass_wide_emulated(load, row_bits, col_bits, ny, nx, k, weights, fixe
     2(w+1)+1; lane 0 reads 2w+1, lane 31 2(w+2); the pads stay zero),
     written one row earlier.  A fixed x side at a thread's first (last)
     column replaces that column's xm (xp) in every warp; the other edge
-    selects run only in the warps whose block's rows, or whose inner
-    columns, hold a fixed side: the other warps run the select-free
-    arithmetic.  Asserts that every output cell is written by exactly one
-    block, and returns the (ny, nx) output."""
+    selects run on every row in the warps whose inner columns hold a fixed
+    side, and in the other warps on the rows of the block's select span
+    (``tcs.select_span`` of its first and last window rows with edge
+    bits): elsewhere the select-free arithmetic runs.  Asserts that every
+    output cell is written by exactly one block, and returns the (ny, nx)
+    output; ``spans``, if given, receives each block's (lo, hi)."""
     wc, wxm, wxp, wym, wyp = weights
     fl, fr, fb, ft = fixes
     w, cpt = geo.width, geo.cpt
@@ -176,14 +185,20 @@ def stream_pass_wide_emulated(load, row_bits, col_bits, ny, nx, k, weights, fixe
         tc = x0[:, None] - k + col[None, :]
         cb = col_bits(tc)
         x_lo, x_hi = (cb & 1).bool(), (cb & 2).bool()
-        # The rows' bits decide for the block, the columns' for each warp:
-        # a fixed side at a thread's first (xm) or last (xp) column is taken
-        # in every warp; one at an inner column makes the warp an edge warp.
-        row_edges = torch.stack([row_bits(y0 - k + i) for i in range(rows)]).ne(0).any(0)
+        # The rows' bits give the block its span of select rows, the
+        # columns' each warp its choice: a fixed side at a thread's first
+        # (xm) or last (xp) column is taken in every warp; one at an inner
+        # column makes the warp select on every row.  The rows before a
+        # span hold no edge bits, so one history serves every warp.
+        bit_rows = torch.stack([row_bits(y0 - k + i) for i in range(rows)]).ne(0)
+        span = torch.tensor([tcs.select_span(int(r[0]), int(r[-1]), rows, kb) if len(r)
+                             else tcs.select_span(rows, -1, rows, kb)
+                             for r in (bit_rows[:, b].nonzero()[:, 0] for b in range(nb))])
+        if spans is not None:
+            spans.extend(tuple(int(v) for v in lh) for lh in span)
         j = col % cpt
         inner = (x_lo & (j != 0)[None, :]) | (x_hi & (j != cpt - 1)[None, :])
-        edge_warp = row_edges[:, None] | inner.view(nb, nw, 32 * cpt).any(2)
-        edge_col = edge_warp.repeat_interleave(32 * cpt, 1)
+        inner_warp = inner.view(nb, nw, 32 * cpt).any(2)
         xch = torch.zeros((nb, 2, kb, 2 * (nw + 2)), dtype=torch.float64)
         q = [[torch.zeros((nb, w), dtype=torch.float64) for _ in range(3)] for _ in range(kb)]
         h_lo = h_hi = torch.zeros(nb, dtype=torch.int64)
@@ -196,6 +211,8 @@ def stream_pass_wide_emulated(load, row_bits, col_bits, ny, nx, k, weights, fixe
 
         for i in range(rows):
             par, now, one, two = i & 1, i % 3, (i + 2) % 3, (i + 1) % 3
+            in_span = (span[:, 0] <= i) & (i < span[:, 1])
+            edge_col = (inner_warp | in_span[:, None]).repeat_interleave(32 * cpt, 1)
             q[0][now] = load(y0 - k + i, tc)
             b = row_bits(y0 - k + i)
             h_lo, h_hi = (h_lo << 1) | (b & 1), (h_hi << 1) | ((b >> 1) & 1)
@@ -571,6 +588,32 @@ def test_streamed_pass_matches_plain_f64_every_bc(shape, k, bc_class):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
 
 
+# Cuts that put the wide body's select span at a limit: a last segment of
+# 1, 2 and 3 output rows, the tallest field of one segment (its window
+# wraps onto itself where the field is shorter than 2k), and windows whose
+# first and last rows are a fixed side's rows.
+SPAN_LIMITS = ("last1", "last2", "last3", "one_segment", "window_ends")
+
+
+def span_limit_shape(limit, k, dtype, nx=300):
+    """(nx, ny) with the least ny whose K1 cut at k (k1_geometry's for
+    ``dtype``) puts the select span at ``limit`` (SPAN_LIMITS)."""
+    for ny in range(3, 4096):
+        g = tcs.k1_geometry(ny, nx, k, dtype)
+        if limit.startswith("last"):
+            ok = g.segments > 1 and ny - (g.segments - 1) * g.rows == int(limit[4:])
+        elif limit == "one_segment":
+            ok = g.segments == 1 and tcs.k1_geometry(ny + 1, nx, k, dtype).segments > 1
+        else:
+            ends = [[(y0 - k + j) % ny in (0, ny - 1)
+                     for j in (0, min(g.rows, ny - y0) + 2 * k - 1)]
+                    for y0 in range(0, ny, g.rows)]
+            ok = any(e[0] for e in ends) and any(e[1] for e in ends)
+        if ok:
+            return nx, ny
+    raise AssertionError(f"no shape puts the select span at {limit} for k={k} {dtype}")
+
+
 def wide_case(nx, ny, bc_class, k, geometry, seed):
     """(emulated wide pass, plain pass) of an edge-parked f64 field:
     ``geometry`` is "f32" / "f64" (k1_geometry's cut for that dtype:
@@ -615,6 +658,55 @@ def test_wide_streamed_pass_matches_plain_f64_every_bc(shape, k, bc_class, geome
     torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("k", [1, 3, 5, 8])
+@pytest.mark.parametrize("limit", SPAN_LIMITS)
+@pytest.mark.parametrize("bc_class", ["D4", "MIX2", "bottom_only", "top_only"])
+def test_wide_pass_at_the_select_span_limits(bc_class, limit, k, dtype):
+    """The wide body's cut (k1_geometry's for ``dtype``) where the select
+    span meets a limit, under fixed bottom and top sides, one of them, and
+    a live x wrap: the emulated pass equals the plain one, and its blocks'
+    spans add up to what ``k1_select_rows`` counts a launch."""
+    nx, ny = span_limit_shape(limit, k, dtype)
+    _, tcfg = make_cfgs(nx, ny, bc_class)
+    u = torch.from_numpy(edge_parked(ny, nx, seed=ny))
+    fixes = [tcs._fix_code(b, tcfg.strict_reference_compat)
+             for b in (tcfg.bc.left, tcfg.bc.right, tcfg.bc.bottom, tcfg.bc.top)]
+    weights = tcs._stencil_weights(0.1, tcfg.D, tcfg.vx, tcfg.vy, tcfg.dx, tcfg.dy)
+    geo = tcs.k1_geometry(ny, nx, k, dtype)
+    spans = []
+    got = stream_pass_wide_emulated(*wrap_source(u, fixes), ny, nx, k, weights, fixes, geo,
+                                    spans=spans)
+    torch.testing.assert_close(got, tcs.multistep_pass_plain(u, tcfg, 0.1, k), rtol=0,
+                               atol=1e-12)
+    assert sum(hi - lo for lo, hi in spans) == tcs.k1_select_rows(
+        ny, nx, k, dtype, fixes[2], fixes[3]) > 0
+
+
+@pytest.mark.parametrize("short", ["one row early", "no span"])
+def test_wide_emulation_needs_the_whole_select_span(monkeypatch, short):
+    """The span reaches just far enough: ended one row before KB rows past
+    the last bit row (and not rounded up), or left out, the emulated pass
+    no longer matches the plain one under fixed y sides."""
+    _, tcfg = make_cfgs(300, 40, "D4")
+    u = torch.from_numpy(edge_parked(40, 300, seed=3))
+    fixes = [tcs._fix_code(b, False)
+             for b in (tcfg.bc.left, tcfg.bc.right, tcfg.bc.bottom, tcfg.bc.top)]
+    weights = tcs._stencil_weights(0.1, tcfg.D, tcfg.vx, tcfg.vy, tcfg.dx, tcfg.dy)
+    geo = tcs.k1_geometry(40, 300, 8, torch.float64)
+    want = tcs.multistep_pass_plain(u, tcfg, 0.1, 8)
+    got = stream_pass_wide_emulated(*wrap_source(u, fixes), 40, 300, 8, weights, fixes, geo)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+    if short == "one row early":
+        rule = lambda first, last, rows, levels: (  # noqa: E731
+            (first, min(rows, last + levels)) if last >= 0 else (rows, rows))
+    else:
+        rule = lambda first, last, rows, levels: (rows, rows)  # noqa: E731
+    monkeypatch.setattr(tcs, "select_span", rule)
+    cut = stream_pass_wide_emulated(*wrap_source(u, fixes), 40, 300, 8, weights, fixes, geo)
+    assert float((cut - want).abs().max()) > 1e-3
+
+
 def test_wide_emulation_needs_the_column_bits():
     """The x sides' selects matter to the emulation: with the column bits
     hidden from it (every warp select-free in x), a Dirichlet / Neumann
@@ -642,19 +734,31 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape, k", [((120, 96), 8), ((20, 300), 8), ((241, 333), 8),
-                                      ((300, 40), 3), ((120, 96), 16), ((120, 96), 32)])
-@pytest.mark.parametrize("bc_class", list(BC_CLASSES))
-def test_cuda_kernel_matches_plain_on_card(cuda_device, bc_class, shape, k):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16],
+                         ids=["f32", "f64", "bf16"])
+@pytest.mark.parametrize("shape, k", [
+    ((120, 96), 8), ((20, 300), 8), ((241, 333), 8), ((300, 40), 3), ((120, 96), 16),
+    ((120, 96), 32), *((limit, k) for limit in SPAN_LIMITS for k in (1, 3, 5, 8))])
+@pytest.mark.parametrize("bc_class", [*BC_CLASSES, *Y_SIDES])
+def test_cuda_kernel_matches_plain_on_card(cuda_device, bc_class, shape, k, dtype):
     """The streaming core's edges: a grid narrower than one band, nx one
     more than a band's output width with a ragged last segment, several
-    bands, and k = 16 and 32."""
-    nx, ny = shape
+    bands, k = 16 and 32, and the cuts that put the wide body's select span
+    at a limit (SPAN_LIMITS).  f32 and f64 agree to round-off; bf16 rounds
+    the kernel's and the plain version's f32 results once each, so they
+    agree to one bf16 ulp of the value."""
+    nx, ny = span_limit_shape(shape, k, dtype) if isinstance(shape, str) else shape
     _, tcfg = make_cfgs(nx, ny, bc_class)
-    u = torch.from_numpy(edge_parked(ny, nx).astype(np.float32)).to(cuda_device)
+    u = torch.from_numpy(edge_parked(ny, nx)).to(cuda_device, dtype)
     before = tcs.multistep_kernel_step.launches
     got = tcs.multistep_kernel_step(u, tcfg, 0.1, k)
     torch.cuda.synchronize(cuda_device)
     assert tcs.multistep_kernel_step.launches == before + 1
     want = tcs.multistep_pass_plain(u, tcfg, 0.1, k)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert got.dtype == dtype
+    if dtype == torch.bfloat16:
+        g64, w64 = got.double(), want.double()
+        assert bool(((g64 - w64).abs() <= w64.abs() * 2.0**-7).all())
+    else:
+        atol = 1e-5 if dtype == torch.float32 else 1e-12
+        torch.testing.assert_close(got, want, rtol=0, atol=atol)
