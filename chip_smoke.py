@@ -549,7 +549,7 @@ PARITY_STEPS = (8, 4)
 def phase_parity(torch, device):
     """``--parity-only``: K1 at 4096² in f64 with Dirichlet on all four
     sides and the parity physics (v (0.5, 0)), k = 8 and 4, against its
-    plain version, with the cut it runs (``k1_cut_counter``); then each
+    plain version, with the cut it runs (``k1_geometry``); then each
     pass in f64 and f32 timed by graph replay in turns with the same pass
     under bench_4096's BCs (no fixed y side, so no block takes the wide
     body's select path) and under P,P,D,N (fixed y sides, live x wrap).
@@ -571,9 +571,7 @@ def phase_parity(torch, device):
         if not err <= ATOL["float64"]:
             fail(f"K1 vs plain: parity {nx}x{ny} float64 k={k}: max abs err {err:.3g}")
         print(f"[parity] {nx}x{ny} float64, Dirichlet on all sides, k={k}:"
-              f" {cs.k1_cut_counter(ny, nx, k, torch.float64)}, select rows"
-              f" {cs.k1_select_rows(ny, nx, k, torch.float64, 1, 1)} a launch;"
-              f" max abs err {err:.3g}")
+              f" {cs.k1_geometry(ny, nx, k, torch.float64)}; max abs err {err:.3g}")
     out = {}
     for dtype in (torch.float64, torch.float32):
         v = u.to(dtype)
@@ -2175,7 +2173,7 @@ def phase_tile_timing(torch, device):
 
     from climate_sim_tpu_torch.benchproto import FLOPS_PER_POINT_STEP
     from climate_sim_tpu_torch.ops import cuda_sharded as sh
-    from climate_sim_tpu_torch.ops.cuda_stencil import _stencil_weights, build_multistep_advance
+    from climate_sim_tpu_torch.ops.cuda_stencil import build_multistep_advance, stencil_constants
     from climate_sim_tpu_torch.parallel import halo
     from climate_sim_tpu_torch.parallel.mesh import shard_field
 
@@ -2225,7 +2223,7 @@ def phase_tile_timing(torch, device):
 
     # K2's one PyTorch call: conv2d of the padded tile with the weights as
     # a 3x3 cross (cross-correlation: row 0 is ym, column 0 is xm), TF32 off.
-    wc, wxm, wxp, wym, wyp = _stencil_weights(cfg.dt, cfg.D, cfg.vx, cfg.vy, cfg.dx, cfg.dy)
+    wc, wxm, wxp, wym, wyp = stencil_constants(cfg, cfg.dt).weights
     cross = torch.tensor([[0.0, wym, 0.0], [wxm, wc, wxp], [0.0, wyp, 0.0]],
                          dtype=torch.float32, device=device)[None, None]
     tf32 = torch.backends.cudnn.allow_tf32

@@ -44,30 +44,18 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from ..config import SimConfig
+from . import _build
 from .cuda_stencil import (
     _DTYPE_CODES,
-    _FIX_NEUMANN,
-    _FIX_NONE,
+    FIX_NEUMANN,
+    FIX_NONE,
     MAX_STEPS_PER_PASS,
-    _fix_code,
-    _stencil_weights,
     band_geometry,
     on_device,
+    stencil_constants,
 )
 
 NO_FLAGS = (0, 0, 0, 0)
-
-
-def _fixes(cfg: SimConfig) -> Tuple[int, int, int, int]:
-    compat = cfg.strict_reference_compat
-    return tuple(
-        _fix_code(b, compat)
-        for b in (cfg.bc.left, cfg.bc.right, cfg.bc.bottom, cfg.bc.top)
-    )
-
-
-def _weights(cfg: SimConfig, dt: float):
-    return _stencil_weights(dt, cfg.D, cfg.vx, cfg.vy, cfg.dx, cfg.dy)
 
 
 def _edge_masks(n: int, l: int, k: int, fix_lo: int, fix_hi: int, flag_lo,
@@ -79,13 +67,13 @@ def _edge_masks(n: int, l: int, k: int, fix_lo: int, fix_hi: int, flag_lo,
     g = torch.arange(-k, n + k, device=device)
     lo = (g == 0) & bool(flag_lo) | (g == l) & bool(flag_hi)
     hi = (g == l - 1) & bool(flag_hi) | (g == -1) & bool(flag_lo)
-    return lo & (fix_lo != _FIX_NONE), hi & (fix_hi != _FIX_NONE)
+    return lo & (fix_lo != FIX_NONE), hi & (fix_hi != FIX_NONE)
 
 
 def _ghost(fix: int, a: torch.Tensor):
     """The BC ghost a masked operand takes: the cell's own value
     (Neumann), else a constant (the Dirichlet value 0.0 or the compat 0)."""
-    return a if fix == _FIX_NEUMANN else 0.0
+    return a if fix == FIX_NEUMANN else 0.0
 
 
 def _substeps_plain(win: torch.Tensor, k: int, weights, fixes, flags,
@@ -132,7 +120,8 @@ def region_pass_plain(padded: torch.Tensor, cfg: SimConfig, dt: float,
     kh = khalo or k
     o = kh - k
     win = _compute(padded[o:o + ny_r + 2 * k, o:o + nx_r + 2 * k])
-    out = _substeps_plain(win, k, _weights(cfg, dt), _fixes(cfg), flags, extent)
+    c = stencil_constants(cfg, dt)
+    out = _substeps_plain(win, k, c.weights, c.fixes, flags, extent)
     return out.to(padded.dtype)
 
 
@@ -233,9 +222,7 @@ def _launch(kernel: str, tensors: Sequence[torch.Tensor], fn: Callable):
             f"{kernel} runs on cpu or cuda tensors of one device, not"
             f" {[str(t.device) for t in tensors]}"
         )
-    from ._build import load_library
-
-    lib = load_library().lib
+    lib = _build.load_library().lib
     with on_device(dev):
         err = fn(lib, torch.cuda.current_stream(dev).cuda_stream)
     if err:
@@ -254,7 +241,7 @@ def prepadded_kernel_step(up: torch.Tensor, cfg: SimConfig, dt: float
     out = torch.empty((my, mx), dtype=up.dtype, device=up.device)
     _launch("K2", [up], lambda lib, stream: lib.climate_prepadded_step(
         up.data_ptr(), out.data_ptr(), my, mx, _DTYPE_CODES[up.dtype],
-        *_weights(cfg, dt), *band_geometry(my, mx, 1)[:2], stream,
+        *stencil_constants(cfg, dt).weights, *band_geometry(my, mx, 1)[:2], stream,
     ))
     prepadded_kernel_step.launches += 1
     return out
@@ -291,10 +278,11 @@ def tile_region_multistep(padded: torch.Tensor, edge_flags: Sequence[int],
     if padded.device.type == "cpu":
         out.copy_(region_pass_plain(padded, cfg, dt, k, ny_r, nx_r, flags, kh))
         return out
+    c = stencil_constants(cfg, dt)
     _launch("K3", [padded, out], lambda lib, stream: lib.climate_region_multistep(
         padded.data_ptr(), padded.stride(0), out.data_ptr(), out.stride(0),
-        ny_r, nx_r, k, kh, _DTYPE_CODES[padded.dtype], *_weights(cfg, dt),
-        *_fixes(cfg), *flags, 0.0, *band_geometry(ny_r, nx_r, k)[:2], stream,
+        ny_r, nx_r, k, kh, _DTYPE_CODES[padded.dtype], *c.weights, *c.fixes, *flags,
+        0.0, *band_geometry(ny_r, nx_r, k)[:2], stream,
     ))
     tile_region_multistep.launches += 1
     return out
@@ -325,10 +313,11 @@ def sharded_tile_slab_multistep(tile: torch.Tensor, xhalo: torch.Tensor,
     if tile.device.type == "cpu":
         return slab_pass_plain(tile, xhalo, yhalo, flags, cfg, dt, k, kh)
     out = torch.empty_like(tile)
+    c = stencil_constants(cfg, dt)
     _launch("K4", [tile, xhalo, yhalo], lambda lib, stream: lib.climate_slab_multistep(
         tile.data_ptr(), xhalo.data_ptr(), yhalo.data_ptr(), out.data_ptr(),
-        my, mx, k, kh, _DTYPE_CODES[tile.dtype], *_weights(cfg, dt),
-        *_fixes(cfg), *flags, 0.0, *band_geometry(my, mx, k)[:2], stream,
+        my, mx, k, kh, _DTYPE_CODES[tile.dtype], *c.weights, *c.fixes, *flags, 0.0,
+        *band_geometry(my, mx, k)[:2], stream,
     ))
     sharded_tile_slab_multistep.launches += 1
     return out
@@ -358,10 +347,11 @@ def carrier_tile_slab_multistep(tile: torch.Tensor, xhalo: torch.Tensor,
     if tile.device.type == "cpu":
         return carrier_pass_plain(tile, xhalo, yhalo, (*flags, ly, lx), cfg, dt, k, kh)
     out = torch.empty_like(tile)
+    c = stencil_constants(cfg, dt)
     _launch("K5", [tile, xhalo, yhalo], lambda lib, stream: lib.climate_carrier_multistep(
         tile.data_ptr(), xhalo.data_ptr(), yhalo.data_ptr(), out.data_ptr(),
-        my, mx, ly, lx, k, kh, _DTYPE_CODES[tile.dtype], *_weights(cfg, dt),
-        *_fixes(cfg), *flags, 0.0, *band_geometry(my, mx, k)[:2], stream,
+        my, mx, ly, lx, k, kh, _DTYPE_CODES[tile.dtype], *c.weights, *c.fixes, *flags, 0.0,
+        *band_geometry(my, mx, k)[:2], stream,
     ))
     carrier_tile_slab_multistep.launches += 1
     return out

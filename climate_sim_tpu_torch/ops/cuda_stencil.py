@@ -6,8 +6,9 @@ one pass of the hand-written CUDA kernel ``csrc/multistep_stencil.cu``, and
 ``build_multistep_advance`` chains such passes into chunk programs.
 
 The update is linear with config-constant coefficients, so one Euler step
-collapses to a 5-point weighted stencil (:func:`_stencil_weights`).  The
-kernel streams column bands of the field down their rows with the k
+collapses to a 5-point weighted stencil whose weights, with the side
+codes of the edge rule, every kernel takes from :func:`stencil_constants`.
+The kernel streams column bands of the field down their rows with the k
 sub-steps pipelined one row apart (:func:`k1_geometry` sizes the bands and
 says how many columns a thread holds) and re-pins the physical-edge ghosts
 at every sub-step, so one pass equals
@@ -22,22 +23,21 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Callable, List, NamedTuple
+from typing import Callable, List, NamedTuple, Tuple
 
 import torch
 
 from ..config import BCType, SimConfig
 from ..runtime import tracing
-from ._build import core_constants
+from . import _build
 from .boundary import pad_with_ghosts
 
 # Side codes of the C interface (csrc/multistep_stencil.cu).
-_FIX_NONE, _FIX_DIRICHLET, _FIX_NEUMANN, _FIX_ZERO = 0, 1, 2, 3
+FIX_NONE, FIX_DIRICHLET, FIX_NEUMANN, FIX_ZERO = 0, 1, 2, 3
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
-_DTYPE_NAMES = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 MAX_STEPS_PER_PASS = 32
 # The core's limits (csrc/stencil_core.cuh, read from the header).
-_CORE = core_constants()
+_CORE = _build.core_constants()
 # The widest band of the one-column body: window columns, one thread
 # each, of a block.
 MAX_BAND = _CORE["MAX_BAND"]
@@ -170,64 +170,31 @@ def k1_geometry(ny: int, nx: int, k: int, dtype: torch.dtype) -> K1Geometry:
     return best
 
 
-@functools.lru_cache(maxsize=256)
-def k1_cut_counter(ny: int, nx: int, k: int, dtype: torch.dtype) -> str:
-    """The counter that K1's launches at this cut add to while tracing is
-    on: ``k1.cut.<dtype>.k<k>.c<columns a thread>.t<block threads>
-    .b<bands>.s<segments>.r<rows>``, from :func:`k1_geometry`, so that a
-    trace says which cut ran."""
-    g = k1_geometry(ny, nx, k, dtype)
-    return (f"k1.cut.{_DTYPE_NAMES[dtype]}.k{k}.c{g.cpt}.t{g.width // g.cpt}"
-            f".b{g.bands}.s{g.segments}.r{g.rows}")
+class StencilConstants(NamedTuple):
+    """What every kernel takes from a configuration and its time step.
+
+    ``weights``: the unsplit Euler update collapsed to a 5-point weighted
+    stencil, u' = wc*c + wxm*xm + wxp*xp + wym*ym + wyp*yp (upwind signs
+    resolved statically), as ``(wc, wxm, wxp, wym, wyp)``.  ``fixes``: what
+    the kernels' edge rule does on the (left, right, bottom, top) physical
+    side: FIX_DIRICHLET, FIX_NEUMANN, or on a periodic side the live wrap
+    (FIX_NONE) or, under ``strict_reference_compat``, the reference's
+    stale-zero ghosts (FIX_ZERO)."""
+
+    weights: Tuple[float, float, float, float, float]
+    fixes: Tuple[int, int, int, int]
 
 
-def select_span(first: int, last: int, rows: int, levels: int) -> tuple:
-    """The window rows ``[lo, hi)`` on which a block of K1's wide body runs
-    the selects of the fixed bottom and top sides, as the kernel sets them
-    (``stencil_core.cuh::band_kernel``): ``first`` and ``last`` are the
-    first and last of the block's ``rows`` window rows with edge bits
-    (``last`` < 0: none, and no row selects), ``levels`` the kernel's level
-    count.  A bit row e reaches level s at iteration e + s, so the span runs
-    from ``first`` rounded down to the loop's three-row rotation to
-    ``levels`` rows past ``last``, rounded up, at most to ``rows``."""
-    if last < 0:
-        return rows, rows
-    return first // 3 * 3, min(rows, (last + levels + 3) // 3 * 3)
+def _constants_key(cfg: SimConfig, dt: float) -> tuple:
+    """The values of ``cfg`` and ``dt`` that :class:`StencilConstants`
+    reads (SimConfig is mutable, so it cannot key a cache itself)."""
+    bc = cfg.bc
+    return (dt, cfg.D, cfg.vx, cfg.vy, cfg.dx, cfg.dy, bc.left, bc.right, bc.bottom,
+            bc.top, cfg.strict_reference_compat)
 
 
 @functools.lru_cache(maxsize=256)
-def k1_select_rows(ny: int, nx: int, k: int, dtype: torch.dtype, fix_bottom: int,
-                   fix_top: int) -> int:
-    """The window rows that one K1 launch's blocks run on the copy of the
-    loop with the selects because a bottom or top side is fixed (side codes
-    ``fix_bottom``, ``fix_top``; 0 is live periodic), summed over the
-    blocks: :func:`select_span` on each block of :func:`k1_geometry`'s cut,
-    and on the one-column body (k > WIDE_MAX_STEPS) every window row of a
-    block whose window holds a fixed side's row.  Rows that a warp runs
-    with selects because of a fixed x side are not counted."""
-    if not (fix_bottom or fix_top):
-        return 0
-    g = k1_geometry(ny, nx, k, dtype)
-    levels = 1 << (k - 1).bit_length()
-    total = 0
-    for y0 in range(0, ny, g.rows):
-        rows = min(g.rows, ny - y0) + 2 * k
-        bit_rows = [j for j in range(rows) if (fix_bottom and (y0 - k + j) % ny == 0)
-                    or (fix_top and (y0 - k + j) % ny == ny - 1)]
-        if not bit_rows:
-            continue
-        if g.cpt == 1:
-            total += rows
-        else:
-            lo, hi = select_span(bit_rows[0], bit_rows[-1], rows, levels)
-            total += hi - lo
-    return total * g.bands
-
-
-def _stencil_weights(dt, D, vx, vy, dx, dy):
-    """The unsplit Euler update collapsed to a 5-point weighted stencil:
-    u' = wc*c + wxm*xm + wxp*xp + wym*ym + wyp*yp (upwind signs resolved
-    statically)."""
+def _constants(dt, D, vx, vy, dx, dy, left, right, bottom, top, compat) -> StencilConstants:
     ax = dt * D / (dx * dx)
     ay = dt * D / (dy * dy)
     cx = dt * vx / dx
@@ -237,43 +204,35 @@ def _stencil_weights(dt, D, vx, vy, dx, dy):
     wxp = ax + (-cx if vx < 0.0 else 0.0)
     wym = ay + (cy if vy >= 0.0 else 0.0)
     wyp = ay + (-cy if vy < 0.0 else 0.0)
-    return wc, wxm, wxp, wym, wyp
+
+    def fix(bc: BCType) -> int:
+        if bc == BCType.DIRICHLET:
+            return FIX_DIRICHLET
+        if bc == BCType.NEUMANN:
+            return FIX_NEUMANN
+        return FIX_ZERO if compat else FIX_NONE
+
+    return StencilConstants((wc, wxm, wxp, wym, wyp),
+                            (fix(left), fix(right), fix(bottom), fix(top)))
 
 
-def _fix_code(bc: BCType, compat: bool) -> int:
-    """What the kernel's edge rule does on a physical side."""
-    if bc == BCType.DIRICHLET:
-        return _FIX_DIRICHLET
-    if bc == BCType.NEUMANN:
-        return _FIX_NEUMANN
-    # periodic: live wrap, or the reference's stale-zero ghosts under compat
-    return _FIX_ZERO if compat else _FIX_NONE
+def stencil_constants(cfg: SimConfig, dt: float) -> StencilConstants:
+    """The weights and side codes of ``cfg`` at time step ``dt``
+    (:class:`StencilConstants`), worked out once for each set of the values
+    they read: ``dt``, ``D``, ``vx``, ``vy``, ``dx``, ``dy``, the four BCs and
+    ``strict_reference_compat``."""
+    return _constants(*_constants_key(cfg, dt))
 
 
-def one_sided_periodic_x(cfg: SimConfig) -> bool:
-    """Exactly one of left/right periodic (wrap live, i.e. not compat)."""
-    if cfg.strict_reference_compat:
-        return False
-    P = BCType.PERIODIC
-    return (cfg.bc.left == P) != (cfg.bc.right == P)
-
-
-def one_sided_periodic_y(cfg: SimConfig) -> bool:
-    """Exactly one of bottom/top periodic (wrap live, i.e. not compat)."""
-    if cfg.strict_reference_compat:
-        return False
-    P = BCType.PERIODIC
-    return (cfg.bc.bottom == P) != (cfg.bc.top == P)
-
-
-def one_sided_periodic(cfg: SimConfig) -> bool:
-    """True when exactly one side of an axis is periodic and wrap is live,
-    e.g. the reference's own dev.yaml (``bottom=periodic top=dirichlet``).
-    The periodic side's ghost is the opposite edge's current line, while the
-    opposite side keeps its own BC.  The kernel's edge rule covers this case
-    like any other, so nothing on the port branches on it; it is kept for
-    parity with the JAX package and for reports."""
-    return one_sided_periodic_x(cfg) or one_sided_periodic_y(cfg)
+@functools.lru_cache(maxsize=256)
+def _k1_arguments(ny: int, nx: int, k: int, dtype: torch.dtype, key: tuple) -> tuple:
+    """A K1 launch's C arguments between its two pointers and its stream,
+    for :func:`_constants_key`'s ``key``: the shape, k, the dtype's code,
+    the weights, the side codes, the Dirichlet value and
+    :func:`k1_geometry`'s band width and segment rows."""
+    c = _constants(*key)
+    g = k1_geometry(ny, nx, k, dtype)
+    return (ny, nx, k, _DTYPE_CODES[dtype], *c.weights, *c.fixes, 0.0, g.width, g.rows)
 
 
 def pick_steps_per_pass(cfg: SimConfig, chunk: int) -> int:
@@ -300,9 +259,7 @@ def multistep_pass_plain(
     """The plain version of K1: ``k`` iterations of ``pad_with_ghosts`` plus
     the weighted 5-point stencil, in the kernel's accumulation order.  bf16
     input computes in f32 and rounds once at the end of the pass."""
-    wc, wxm, wxp, wym, wyp = _stencil_weights(
-        dt, cfg.D, cfg.vx, cfg.vy, cfg.dx, cfg.dy
-    )
+    wc, wxm, wxp, wym, wyp = stencil_constants(cfg, dt).weights
     compat = cfg.strict_reference_compat
     a = u.to(torch.float32) if u.dtype == torch.bfloat16 else u
     for _ in range(k):
@@ -349,15 +306,10 @@ def multistep_kernel_step(
 
     A CUDA tensor launches the kernel on the current stream into a fresh
     output (the input is never written) or raises; a CPU tensor takes the
-    plain version.  ``multistep_kernel_step.launches`` counts the launches,
-    ``multistep_kernel_step.wide_launches`` those that ran the wide body
-    (:func:`k1_geometry`'s ``cpt`` > 1); while tracing is on, the counter
-    ``k1.host_ns`` adds the host time of each launch from entry to the C
-    call (which blocks while the launch queue is full, so it is left out),
-    ``k1.wide_launches`` counts the wide launches, the counter of the
-    launch's cut (:func:`k1_cut_counter`) counts each launch, and
-    ``k1.select_rows`` adds the window rows its blocks run with the fixed
-    y sides' selects (:func:`k1_select_rows`).
+    plain version.  ``multistep_kernel_step.launches`` counts the launches;
+    while tracing is on, the counter ``k1.host_ns`` adds the host time of
+    each launch from entry to the C call (which blocks while the launch
+    queue is full, so it is left out).
     """
     traced = tracing.ON
     if traced:
@@ -367,43 +319,22 @@ def multistep_kernel_step(
         return multistep_pass_plain(u, cfg, dt, k)
     if u.device.type != "cuda":
         raise RuntimeError(f"K1 runs on cuda or cpu tensors, not {u.device}")
-    from ._build import load_library
-
-    lib = load_library().lib
-    compat = cfg.strict_reference_compat
-    fixes = [
-        _fix_code(b, compat)
-        for b in (cfg.bc.left, cfg.bc.right, cfg.bc.bottom, cfg.bc.top)
-    ]
-    weights = _stencil_weights(dt, cfg.D, cfg.vx, cfg.vy, cfg.dx, cfg.dy)
-    geo = k1_geometry(cfg.ny, cfg.nx, k, u.dtype)
+    args = _k1_arguments(cfg.ny, cfg.nx, k, u.dtype, _constants_key(cfg, dt))
+    lib = _build.load_library().lib
     out = torch.empty_like(u)
     with on_device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         if traced:
             tracing.add("k1.host_ns", tracing.clock() - entered)
-        err = lib.climate_multistep_stencil(
-            u.data_ptr(), out.data_ptr(), cfg.ny, cfg.nx, k,
-            _DTYPE_CODES[u.dtype], *weights, *fixes, 0.0, geo.width,
-            geo.rows, stream,
-        )
+        err = lib.climate_multistep_stencil(u.data_ptr(), out.data_ptr(), *args, stream)
     if err:
         msg = lib.climate_cuda_error_string(err).decode()
         raise RuntimeError(f"K1 launch failed: CUDA error {err} ({msg})")
     multistep_kernel_step.launches += 1
-    if traced:
-        tracing.add(k1_cut_counter(cfg.ny, cfg.nx, k, u.dtype), 1)
-        tracing.add("k1.select_rows",
-                    k1_select_rows(cfg.ny, cfg.nx, k, u.dtype, fixes[2], fixes[3]))
-    if geo.cpt > 1:
-        multistep_kernel_step.wide_launches += 1
-        if traced:
-            tracing.add("k1.wide_launches", 1)
     return out
 
 
 multistep_kernel_step.launches = 0
-multistep_kernel_step.wide_launches = 0
 
 
 def build_multistep_advance(
@@ -411,21 +342,27 @@ def build_multistep_advance(
 ) -> Callable[[int], Callable[[torch.Tensor], torch.Tensor]]:
     """``advance(chunk)`` -> fn advancing the global field ``chunk`` steps
     in K1 passes (:func:`pass_schedule`).  Every pass goes to
-    :func:`multistep_kernel_step`; nothing falls back per pass.
-    ``advance.pass_count(chunk)`` is the number of passes, and with it of
-    bf16 rounding events, in such a program."""
+    :func:`multistep_kernel_step`, looked up by its module name as the
+    pass runs; nothing falls back per pass.  ``advance.pass_count(chunk)``
+    is the number of passes, and with it of bf16 rounding events, in such
+    a program.  Both are built once for each chunk length."""
 
+    @functools.lru_cache(maxsize=None)
+    def schedule(chunk: int) -> Tuple[int, ...]:
+        return tuple(pass_schedule(cfg, chunk))
+
+    @functools.lru_cache(maxsize=None)
     def advance(chunk: int):
-        schedule = pass_schedule(cfg, chunk)
+        passes = schedule(chunk)
 
         def body(u: torch.Tensor) -> torch.Tensor:
-            for kk in schedule:
+            for kk in passes:
                 u = multistep_kernel_step(u, cfg, dt, kk)
             return u
 
         return body
 
-    advance.pass_count = lambda chunk: len(pass_schedule(cfg, chunk))
+    advance.pass_count = lambda chunk: len(schedule(chunk))
     advance.uses_kernel = True
     advance.kernel = "K1"
     return advance

@@ -64,7 +64,7 @@ from ..ops.cuda_sharded import (
     sharded_tile_slab_multistep,
     tile_region_multistep,
 )
-from ..ops.cuda_stencil import _stencil_weights, pick_steps_per_pass
+from ..ops.cuda_stencil import pick_steps_per_pass, stencil_constants
 from ..ops.step import make_interior_step
 from .mesh import Mesh, Tiles, divisible
 
@@ -625,7 +625,7 @@ def build_carrier_slab_advance(cfg: SimConfig, mesh: Mesh, dt: float):
     my, e_y, ly = plan_y
     if my * py * mx * px > 2 * ny * nx:
         return None
-    gamma = sum(abs(w) for w in _stencil_weights(dt, cfg.D, cfg.vx, cfg.vy, cfg.dx, cfg.dy))
+    gamma = sum(abs(w) for w in stencil_constants(cfg, dt).weights)
     damp_pads = gamma > 1.0 + 1e-12
     wrap_x, wrap_y = axis_wrap_flags(cfg)
     # The tail-mirror feeds the low side's ghost (through the cyclic

@@ -77,8 +77,7 @@ def main(argv) -> int:
 
     for n, dname, k in K1_CASES:
         cfg = smoke.make_cfg(n, n, "bench")
-        weights = cs._stencil_weights(cfg.dt, cfg.D, cfg.vx, cfg.vy, cfg.dx, cfg.dy)
-        fixes = sh._fixes(cfg)
+        weights, fixes = cs.stencil_constants(cfg, cfg.dt)
         dtype = getattr(torch, dname)
         u = smoke.edge_parked(torch, n, n, seed=7, device=dev).to(dtype)
         o1 = torch.empty_like(u)
@@ -126,8 +125,7 @@ def main(argv) -> int:
     if "--k1-only" in argv:
         return 0
     cfg = smoke.make_cfg(4096, 4096, "bench")
-    weights = cs._stencil_weights(cfg.dt, cfg.D, cfg.vx, cfg.vy, cfg.dx, cfg.dy)
-    fixes = sh._fixes(cfg)
+    weights, fixes = cs.stencil_constants(cfg, cfg.dt)
     up = smoke.edge_parked(torch, 2050, 2050, seed=3, device=dev).float()
     o2 = torch.empty((2048, 2048), device=dev)
     w = smoke.edge_parked(torch, 2064, 2064, seed=11, device=dev).float()

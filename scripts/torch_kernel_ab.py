@@ -17,7 +17,8 @@ wrappers' host time):
   ``configs/dev.yaml``'s 512² in float32, ``configs/parity_f64.yaml``'s
   256² in float64;
 * K2 on a 2050² padded tile, and ``conv2d`` computing the same function
-  (the five weights as a 3x3 cross, TF32 off) beside it;
+  (the five weights, from the checkout's ``cuda_stencil.stencil_constants``,
+  as a 3x3 cross, TF32 off) beside it;
 * K3 on a 2048² region of a 2064² window, and on its 8-column band;
 * K4 on a 2048² tile and its slabs, K5 on the 2009x2001 carrier tile of
   4001² on 2x2 (the corner tile's flags and true extent);
@@ -88,8 +89,7 @@ def time_kernels(root: str) -> dict:
     wc_ = smoke.edge_parked(torch, cy + 2 * k, cx + 2 * k, seed=12, device=dev).to(torch.float32)
     ctile, cxh, cyh = smoke.slabs(torch, wc_, k)
     f6 = (0, 1, 0, 1, *smoke.CARRIER_EDGE)
-    wc, wxm, wxp, wym, wyp = cs._stencil_weights(tcfg.dt, tcfg.D, tcfg.vx, tcfg.vy,
-                                                 tcfg.dx, tcfg.dy)
+    wc, wxm, wxp, wym, wyp = cs.stencil_constants(tcfg, tcfg.dt).weights
     cross = torch.tensor([[0.0, wym, 0.0], [wxm, wc, wxp], [0.0, wyp, 0.0]],
                          dtype=torch.float32, device=dev)[None, None]
     torch.backends.cudnn.allow_tf32 = False

@@ -353,11 +353,9 @@ def test_k1_launch_marshals_the_c_interface(stub, dtype):
     assert out.shape == u.shape and out.dtype == dtype
     geo = tcs.k1_geometry(40, 100, 3, dtype)
     assert geo.cpt == tcs.WIDE_COLUMNS[dtype]
-    fixes = [tcs._fix_code(b, False) for b in (cfg.bc.left, cfg.bc.right, cfg.bc.bottom,
-                                                 cfg.bc.top)]
+    weights, fixes = tcs.stencil_constants(cfg, 0.1)
     assert recorded(stub) == (1, [40, 100, 3, tcs._DTYPE_CODES[dtype], *fixes, geo.width,
-                                  geo.rows, 0],
-                              [*tcs._stencil_weights(0.1, 0.05, 0.5, -0.25, 1.0, 1.0), 0.0])
+                                  geo.rows, 0], [*weights, 0.0])
     set_stub_error(stub, 9)
     with pytest.raises(RuntimeError, match=r"K1 launch failed: CUDA error 9 \(stub error 9\)"):
         tcs.multistep_kernel_step(u, cfg, 0.1, 3)
@@ -366,8 +364,8 @@ def test_k1_launch_marshals_the_c_interface(stub, dtype):
 
 def test_k2_to_k5_launches_marshal_the_c_interface(stub):
     cfg = make_cfg(48, 24, bcs=("periodic", "dirichlet", "neumann", "periodic"), compat=True)
-    w = tsh._weights(cfg, 0.1)
-    fixes = list(tsh._fixes(cfg))
+    w, fixes = tcs.stencil_constants(cfg, 0.1)
+    fixes = list(fixes)
     f32 = tcs._DTYPE_CODES[torch.float32]
     k, my, mx = 4, 24, 48
     win = torch.rand(my + 2 * k, mx + 2 * k)
@@ -413,6 +411,148 @@ def test_k2_to_k5_launches_marshal_the_c_interface(stub):
     ):
         with pytest.raises(RuntimeError, match=rf"{name} launch failed: CUDA error 4"):
             call()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+def test_k1_launch_passes_its_cut_to_the_c_interface(stub, dtype):
+    """Passes up to WIDE_MAX_STEPS run the wide body (cpt > 1), deeper
+    ones the one-column body; each launch's band (k1_geometry's) reaches
+    the C interface."""
+    cfg, u = make_cfg(100, 40), cuda_like(torch.rand(40, 100).to(dtype))
+    launches = tcs.multistep_kernel_step.launches
+    for k in (1, 3, 8, 9, 16, 32, 4):
+        tcs.multistep_kernel_step(u, cfg, 0.1, k)
+        geo = tcs.k1_geometry(40, 100, k, dtype)
+        assert (geo.cpt > 1) == (k <= tcs.WIDE_MAX_STEPS)
+        assert recorded(stub)[1][8:] == [geo.width, geo.rows, 0]  # 0: the stream
+    assert tcs.multistep_kernel_step.launches == launches + 7
+
+
+D, N, P = "dirichlet", "neumann", "periodic"
+# (left, right, bottom, top): fixed bottom, top, both y sides, and both
+# with the x sides wrapping.
+Y_FIXED = {"bottom": (P, P, D, P), "top": (D, N, P, N), "both": (D, D, D, D),
+           "both_x_wrap": (P, P, D, N)}
+
+
+def written_out(cfg, dt):
+    """The weights and side codes by the rule, written out: diffusion
+    numbers ax, ay and Courant numbers cx, cy, the upwind side taking
+    the advection; Dirichlet 1, Neumann 2, periodic 0 (live wrap) or 3
+    (the reference's zero ghosts under ``strict_reference_compat``)."""
+    ax, ay = dt * cfg.D / (cfg.dx * cfg.dx), dt * cfg.D / (cfg.dy * cfg.dy)
+    cx, cy = dt * cfg.vx / cfg.dx, dt * cfg.vy / cfg.dy
+    weights = (1.0 - 2.0 * ax - 2.0 * ay - abs(cx) - abs(cy),
+               ax + (cx if cfg.vx >= 0.0 else 0.0), ax + (-cx if cfg.vx < 0.0 else 0.0),
+               ay + (cy if cfg.vy >= 0.0 else 0.0), ay + (-cy if cfg.vy < 0.0 else 0.0))
+    code = {"dirichlet": 1, "neumann": 2,
+            "periodic": 3 if cfg.strict_reference_compat else 0}
+    fixes = tuple(code[b.value] for b in (cfg.bc.left, cfg.bc.right, cfg.bc.bottom,
+                                          cfg.bc.top))
+    return weights, fixes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("bc_class", list(Y_FIXED))
+def test_k1_launch_takes_the_stencil_constants(stub, bc_class, dtype):
+    """Each launch passes the side codes and weights that
+    ``stencil_constants`` gives, and they are the rule's, bit for bit."""
+    cfg = make_cfg(100, 40, Y_FIXED[bc_class])
+    u = cuda_like(torch.rand(40, 100).to(dtype))
+    weights, fixes = written_out(cfg, 0.1)
+    assert tcs.stencil_constants(cfg, 0.1) == (weights, fixes)
+    for k in (8, 8, 4, 16, 3):
+        tcs.multistep_kernel_step(u, cfg, 0.1, k)
+        _, ints, doubles = recorded(stub)
+        assert ints[4:8] == list(fixes) and doubles == [*weights, 0.0]
+
+
+@pytest.mark.parametrize("compat", [False, True], ids=["live", "compat"])
+@pytest.mark.parametrize("bc_class", list(Y_FIXED))
+def test_k2_to_k5_launches_take_the_stencil_constants(stub, bc_class, compat):
+    """K2-K5 pass the same weights and side codes as K1, periodic sides
+    under ``strict_reference_compat`` as the zero ghosts' code."""
+    cfg = make_cfg(48, 24, Y_FIXED[bc_class], compat=compat)
+    weights, fixes = written_out(cfg, 0.1)
+    assert tcs.stencil_constants(cfg, 0.1) == (weights, fixes)
+    k, my, mx = 3, 24, 48
+    win = torch.rand(my + 2 * k, mx + 2 * k)
+    tile = cuda_like(win[k:-k, k:-k])
+    xh = cuda_like(torch.cat([win[k:-k, :k], win[k:-k, -k:]], 1))
+    yh = cuda_like(torch.cat([win[:k], win[-k:]], 0))
+    tsh.prepadded_kernel_step(cuda_like(win[k - 1:-(k - 1), k - 1:-(k - 1)]), cfg, 0.1)
+    assert recorded(stub)[2] == list(weights)
+    for call, at in (
+        (lambda: tsh.tile_region_multistep(cuda_like(win), (1, 0, 0, 1), cfg, 0.1, k, my,
+                                           mx), 7),
+        (lambda: tsh.sharded_tile_slab_multistep(tile, xh, yh, (0, 1, 1, 0), cfg, 0.1, k),
+         5),
+        (lambda: tsh.carrier_tile_slab_multistep(tile, xh, yh, (0, 1, 0, 1, 20, 41), cfg,
+                                                 0.1, k), 7),
+    ):
+        call()
+        _, ints, doubles = recorded(stub)
+        assert ints[at:at + 4] == list(fixes) and doubles == [*weights, 0.0]
+
+
+def test_equal_configurations_work_out_the_constants_once(stub, monkeypatch):
+    """A launch with a configuration equal to one seen before (another
+    object) works out neither the constants nor the cut again."""
+    u = cuda_like(torch.rand(40, 100))
+    tcs.multistep_kernel_step(u, make_cfg(100, 40), 0.1, 8)
+    first = recorded(stub)
+
+    def boom(*args, **kw):
+        raise AssertionError("worked out again")
+
+    monkeypatch.setattr(tcs, "_constants", boom)
+    monkeypatch.setattr(tcs, "k1_geometry", boom)
+    tcs.multistep_kernel_step(u, make_cfg(100, 40), 0.1, 8)
+    assert recorded(stub) == first
+
+
+@pytest.mark.parametrize("change", ["dt", "vx", "vy", "bottom"])
+def test_a_configuration_that_differs_gets_its_own_constants(stub, change):
+    """The same configuration object, changed in dt, a velocity or one BC
+    after a launch: the next launch passes the changed one's constants."""
+    cfg, u, dt = make_cfg(100, 40), cuda_like(torch.rand(40, 100)), 0.1
+    tcs.multistep_kernel_step(u, cfg, dt, 8)
+    before = recorded(stub)
+    if change == "dt":
+        dt = 0.05
+    elif change == "bottom":
+        cfg.bc.bottom = bc_from_string("neumann")
+    else:
+        setattr(cfg, change, -getattr(cfg, change))
+    tcs.multistep_kernel_step(u, cfg, dt, 8)
+    _, ints, doubles = recorded(stub)
+    weights, fixes = written_out(cfg, dt)
+    assert ints[4:8] == list(fixes) and doubles == [*weights, 0.0]
+    assert (ints, doubles) != before[1:]
+
+
+def test_a_patch_of_k1_after_the_advance_is_built_runs_in_its_passes(monkeypatch):
+    """The advance builds each chunk length once, and its passes look K1 up
+    by the module's name as they run: a wrapper put there after the build
+    runs every pass."""
+    cfg = make_cfg(128, 128)
+    advance = tcs.build_multistep_advance(cfg, 0.1)
+    body = advance(19)
+    assert advance(19) is body and advance.pass_count(19) == 5
+    real, seen = tcs.multistep_kernel_step, []
+
+    def spy(u, cfg_, dt, k):
+        seen.append(k)
+        return real(u, cfg_, dt, k)
+
+    monkeypatch.setattr(tcs, "multistep_kernel_step", spy)
+    u = torch.rand(128, 128, dtype=torch.float64)
+    got = body(u)
+    assert seen == tcs.pass_schedule(cfg, 19) == [4, 4, 4, 4, 3]
+    want = u
+    for k in seen:
+        want = tcs.multistep_pass_plain(want, cfg, 0.1, k)
+    assert torch.equal(got, want)
 
 
 def test_launch_refuses_tensors_of_two_devices(stub):

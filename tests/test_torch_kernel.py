@@ -17,9 +17,13 @@ kernel's source, the k levels one row apart with the vertical operands
 kept per level, xm/xp from the level's previous row, the edge bits as a
 per-row history and per-column bits), :func:`stream_pass_wide_emulated`
 what K1's wide body does (several columns a thread, the shuffles and the
-warps' exchange rows, the edge selects chosen per warp), and the tests
-hold both to the plain versions in f64.
+warps' exchange rows, the edge selects chosen per warp, each block's
+rows of the fixed y sides' selects by the kernel's rule,
+:func:`select_span`, summed over a launch by :func:`k1_select_rows`),
+and the tests hold both to the plain versions in f64.
 """
+
+import sys
 
 import numpy as np
 import pytest
@@ -69,6 +73,16 @@ def make_cfgs(nx, ny, bc_class, *, D_=0.05, vx=0.5, vy=-0.25, **kw):
 _FIX_NEUMANN, _FIX_DIRICHLET = 2, 1
 
 
+def read_window(load, row_bits, y0, tc, k, rows):
+    """Window rows ``y0 - k + i``, i < ``rows``, of each block of a group
+    (``y0`` its first output rows, ``tc`` its window columns), read through
+    the source in one call: (rows, blocks, width) values and (rows,
+    blocks) edge bits, what ``load`` and ``row_bits`` give row by row."""
+    tr = (y0[None, :] - k + torch.arange(rows)[:, None]).reshape(-1)
+    return (load(tr, tc.repeat(rows, 1)).reshape(rows, *tc.shape),
+            row_bits(tr).reshape(rows, len(y0)))
+
+
 def stream_pass_emulated(load, row_bits, col_bits, ny, nx, k, weights, fixes,
                          bc_value=0.0):
     """One pass of the streaming core (csrc/stencil_core.cuh) emulated in
@@ -107,9 +121,9 @@ def stream_pass_emulated(load, row_bits, col_bits, ny, nx, k, weights, fixes,
         m2 = [torch.zeros(tc.shape, dtype=torch.float64) for _ in range(k)]
         h_lo = h_hi = torch.zeros(len(corners), dtype=torch.int64)
         keep = (lane >= k) & (lane < w - k) & (tc < nx)
+        window, bits = read_window(load, row_bits, y0, tc, k, rows)
         for i in range(rows):
-            v = load(y0 - k + i, tc)
-            b = row_bits(y0 - k + i)
+            v, b = window[i], bits[i]
             h_lo, h_hi = (h_lo << 1) | (b & 1), (h_hi << 1) | ((b >> 1) & 1)
             for s in range(1, k + 1):
                 # Level s's row i-s: ym, c from its registers, yp from
@@ -133,6 +147,48 @@ def stream_pass_emulated(load, row_bits, col_bits, ny, nx, k, weights, fixes,
     return out
 
 
+def select_span(first: int, last: int, rows: int, levels: int) -> tuple:
+    """The window rows ``[lo, hi)`` on which a block of K1's wide body runs
+    the selects of the fixed bottom and top sides, as the kernel sets them
+    (``stencil_core.cuh::band_kernel``): ``first`` and ``last`` are the
+    first and last of the block's ``rows`` window rows with edge bits
+    (``last`` < 0: none, and no row selects), ``levels`` the kernel's level
+    count.  A bit row e reaches level s at iteration e + s, so the span runs
+    from ``first`` rounded down to the loop's three-row rotation to
+    ``levels`` rows past ``last``, rounded up, at most to ``rows``."""
+    if last < 0:
+        return rows, rows
+    return first // 3 * 3, min(rows, (last + levels + 3) // 3 * 3)
+
+
+def k1_select_rows(ny: int, nx: int, k: int, dtype: torch.dtype, fix_bottom: int,
+                   fix_top: int) -> int:
+    """The window rows that one K1 launch's blocks run on the copy of the
+    loop with the selects because a bottom or top side is fixed (side codes
+    ``fix_bottom``, ``fix_top``; 0 is live periodic), summed over the
+    blocks: :func:`select_span` on each block of ``k1_geometry``'s cut,
+    and on the one-column body (k > WIDE_MAX_STEPS) every window row of a
+    block whose window holds a fixed side's row.  Rows that a warp runs
+    with selects because of a fixed x side are not counted."""
+    if not (fix_bottom or fix_top):
+        return 0
+    g = tcs.k1_geometry(ny, nx, k, dtype)
+    levels = 1 << (k - 1).bit_length()
+    total = 0
+    for y0 in range(0, ny, g.rows):
+        rows = min(g.rows, ny - y0) + 2 * k
+        bit_rows = [j for j in range(rows) if (fix_bottom and (y0 - k + j) % ny == 0)
+                    or (fix_top and (y0 - k + j) % ny == ny - 1)]
+        if not bit_rows:
+            continue
+        if g.cpt == 1:
+            total += rows
+        else:
+            lo, hi = select_span(bit_rows[0], bit_rows[-1], rows, levels)
+            total += hi - lo
+    return total * g.bands
+
+
 def stream_pass_wide_emulated(load, row_bits, col_bits, ny, nx, k, weights, fixes, geo,
                               bc_value=0.0, spans=None):
     """One pass of the core's wide body (``stream_band_wide``) emulated in
@@ -149,7 +205,7 @@ def stream_pass_wide_emulated(load, row_bits, col_bits, ny, nx, k, weights, fixe
     column replaces that column's xm (xp) in every warp; the other edge
     selects run on every row in the warps whose inner columns hold a fixed
     side, and in the other warps on the rows of the block's select span
-    (``tcs.select_span`` of its first and last window rows with edge
+    (:func:`select_span` of its first and last window rows with edge
     bits): elsewhere the select-free arithmetic runs.  Asserts that every
     output cell is written by exactly one block, and returns the (ny, nx)
     output; ``spans``, if given, receives each block's (lo, hi)."""
@@ -190,9 +246,10 @@ def stream_pass_wide_emulated(load, row_bits, col_bits, ny, nx, k, weights, fixe
         # (xm) or last (xp) column is taken in every warp; one at an inner
         # column makes the warp select on every row.  The rows before a
         # span hold no edge bits, so one history serves every warp.
-        bit_rows = torch.stack([row_bits(y0 - k + i) for i in range(rows)]).ne(0)
-        span = torch.tensor([tcs.select_span(int(r[0]), int(r[-1]), rows, kb) if len(r)
-                             else tcs.select_span(rows, -1, rows, kb)
+        window, bits = read_window(load, row_bits, y0, tc, k, rows)
+        bit_rows = bits.ne(0)
+        span = torch.tensor([select_span(int(r[0]), int(r[-1]), rows, kb) if len(r)
+                             else select_span(rows, -1, rows, kb)
                              for r in (bit_rows[:, b].nonzero()[:, 0] for b in range(nb))])
         if spans is not None:
             spans.extend(tuple(int(v) for v in lh) for lh in span)
@@ -213,8 +270,7 @@ def stream_pass_wide_emulated(load, row_bits, col_bits, ny, nx, k, weights, fixe
             par, now, one, two = i & 1, i % 3, (i + 2) % 3, (i + 1) % 3
             in_span = (span[:, 0] <= i) & (i < span[:, 1])
             edge_col = (inner_warp | in_span[:, None]).repeat_interleave(32 * cpt, 1)
-            q[0][now] = load(y0 - k + i, tc)
-            b = row_bits(y0 - k + i)
+            q[0][now], b = window[i], bits[i]
             h_lo, h_hi = (h_lo << 1) | (b & 1), (h_hi << 1) | ((b >> 1) & 1)
             put_ends(par, 0, q[0][now])
             for s in range(1, kb + 1):
@@ -377,12 +433,20 @@ def test_bench_pass_schedule():
 
 @pytest.mark.parametrize("bc_class", list(BC_CLASSES))
 def test_one_sided_predicates_and_weights_match_jax(bc_class):
+    """The side codes carry the JAX package's one-sided predicates (an axis
+    with exactly one live periodic side, FIX_NONE), and the weights are the
+    JAX package's, bit for bit."""
     jcfg, tcfg = make_cfgs(64, 64, bc_class)
-    for name in ("one_sided_periodic", "one_sided_periodic_x", "one_sided_periodic_y"):
-        assert getattr(tcs, name)(tcfg) == getattr(jps, name)(jcfg)
+    fl, fr, fb, ft = tcs.stencil_constants(tcfg, 0.1).fixes
+    x = (fl == tcs.FIX_NONE) != (fr == tcs.FIX_NONE)
+    y = (fb == tcs.FIX_NONE) != (ft == tcs.FIX_NONE)
+    assert (x, y, x or y) == (jps.one_sided_periodic_x(jcfg), jps.one_sided_periodic_y(jcfg),
+                              jps.one_sided_periodic(jcfg))
+    tcfg.dy = 0.5
     for vx, vy in ((0.5, -0.25), (0.0, 0.0), (-1.0, 0.5)):
-        args = (0.1, 0.05, vx, vy, 1.0, 0.5)
-        assert tcs._stencil_weights(*args) == jps._stencil_weights(*args)
+        tcfg.vx, tcfg.vy = vx, vy
+        assert tcs.stencil_constants(tcfg, 0.1).weights == jps._stencil_weights(
+            0.1, 0.05, vx, vy, 1.0, 0.5)
 
 
 def test_wrapper_checks_and_cpu_launch_count():
@@ -562,9 +626,7 @@ def test_streamed_pass_matches_plain_f64(shape, bc_class, k):
     nx, ny = shape
     _, tcfg = make_cfgs(nx, ny, bc_class, vx=-0.3, vy=0.6)
     u = torch.from_numpy(edge_parked(ny, nx, seed=k))
-    fixes = [tcs._fix_code(b, tcfg.strict_reference_compat)
-             for b in (tcfg.bc.left, tcfg.bc.right, tcfg.bc.bottom, tcfg.bc.top)]
-    weights = tcs._stencil_weights(0.1, tcfg.D, tcfg.vx, tcfg.vy, tcfg.dx, tcfg.dy)
+    weights, fixes = tcs.stencil_constants(tcfg, 0.1)
     got = stream_pass_emulated(*wrap_source(u, fixes), ny, nx, k, weights, fixes)
     want = tcs.multistep_pass_plain(u, tcfg, 0.1, k)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
@@ -580,9 +642,7 @@ def test_streamed_pass_matches_plain_f64_every_bc(shape, k, bc_class):
     nx, ny = shape
     _, tcfg = make_cfgs(nx, ny, bc_class)
     u = torch.from_numpy(edge_parked(ny, nx, seed=nx))
-    fixes = [tcs._fix_code(b, tcfg.strict_reference_compat)
-             for b in (tcfg.bc.left, tcfg.bc.right, tcfg.bc.bottom, tcfg.bc.top)]
-    weights = tcs._stencil_weights(0.1, tcfg.D, tcfg.vx, tcfg.vy, tcfg.dx, tcfg.dy)
+    weights, fixes = tcs.stencil_constants(tcfg, 0.1)
     got = stream_pass_emulated(*wrap_source(u, fixes), ny, nx, k, weights, fixes)
     want = tcs.multistep_pass_plain(u, tcfg, 0.1, k)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
@@ -621,9 +681,7 @@ def wide_case(nx, ny, bc_class, k, geometry, seed):
     blocks, 4 columns a thread, so the warps' ends meet inside a band)."""
     _, tcfg = make_cfgs(nx, ny, bc_class)
     u = torch.from_numpy(edge_parked(ny, nx, seed=seed))
-    fixes = [tcs._fix_code(b, tcfg.strict_reference_compat)
-             for b in (tcfg.bc.left, tcfg.bc.right, tcfg.bc.bottom, tcfg.bc.top)]
-    weights = tcs._stencil_weights(0.1, tcfg.D, tcfg.vx, tcfg.vy, tcfg.dx, tcfg.dy)
+    weights, fixes = tcs.stencil_constants(tcfg, 0.1)
     if geometry == "3 warps":
         geo = tcs.wide_geometry(ny, nx, k, 4, 96)
     else:
@@ -666,20 +724,18 @@ def test_wide_pass_at_the_select_span_limits(bc_class, limit, k, dtype):
     """The wide body's cut (k1_geometry's for ``dtype``) where the select
     span meets a limit, under fixed bottom and top sides, one of them, and
     a live x wrap: the emulated pass equals the plain one, and its blocks'
-    spans add up to what ``k1_select_rows`` counts a launch."""
+    spans add up to what :func:`k1_select_rows` counts a launch."""
     nx, ny = span_limit_shape(limit, k, dtype)
     _, tcfg = make_cfgs(nx, ny, bc_class)
     u = torch.from_numpy(edge_parked(ny, nx, seed=ny))
-    fixes = [tcs._fix_code(b, tcfg.strict_reference_compat)
-             for b in (tcfg.bc.left, tcfg.bc.right, tcfg.bc.bottom, tcfg.bc.top)]
-    weights = tcs._stencil_weights(0.1, tcfg.D, tcfg.vx, tcfg.vy, tcfg.dx, tcfg.dy)
+    weights, fixes = tcs.stencil_constants(tcfg, 0.1)
     geo = tcs.k1_geometry(ny, nx, k, dtype)
     spans = []
     got = stream_pass_wide_emulated(*wrap_source(u, fixes), ny, nx, k, weights, fixes, geo,
                                     spans=spans)
     torch.testing.assert_close(got, tcs.multistep_pass_plain(u, tcfg, 0.1, k), rtol=0,
                                atol=1e-12)
-    assert sum(hi - lo for lo, hi in spans) == tcs.k1_select_rows(
+    assert sum(hi - lo for lo, hi in spans) == k1_select_rows(
         ny, nx, k, dtype, fixes[2], fixes[3]) > 0
 
 
@@ -690,9 +746,7 @@ def test_wide_emulation_needs_the_whole_select_span(monkeypatch, short):
     no longer matches the plain one under fixed y sides."""
     _, tcfg = make_cfgs(300, 40, "D4")
     u = torch.from_numpy(edge_parked(40, 300, seed=3))
-    fixes = [tcs._fix_code(b, False)
-             for b in (tcfg.bc.left, tcfg.bc.right, tcfg.bc.bottom, tcfg.bc.top)]
-    weights = tcs._stencil_weights(0.1, tcfg.D, tcfg.vx, tcfg.vy, tcfg.dx, tcfg.dy)
+    weights, fixes = tcs.stencil_constants(tcfg, 0.1)
     geo = tcs.k1_geometry(40, 300, 8, torch.float64)
     want = tcs.multistep_pass_plain(u, tcfg, 0.1, 8)
     got = stream_pass_wide_emulated(*wrap_source(u, fixes), 40, 300, 8, weights, fixes, geo)
@@ -702,7 +756,7 @@ def test_wide_emulation_needs_the_whole_select_span(monkeypatch, short):
             (first, min(rows, last + levels)) if last >= 0 else (rows, rows))
     else:
         rule = lambda first, last, rows, levels: (rows, rows)  # noqa: E731
-    monkeypatch.setattr(tcs, "select_span", rule)
+    monkeypatch.setattr(sys.modules[__name__], "select_span", rule)
     cut = stream_pass_wide_emulated(*wrap_source(u, fixes), 40, 300, 8, weights, fixes, geo)
     assert float((cut - want).abs().max()) > 1e-3
 
@@ -713,9 +767,7 @@ def test_wide_emulation_needs_the_column_bits():
     pair of x sides no longer matches the plain pass."""
     _, tcfg = make_cfgs(300, 40, "MIX1")
     u = torch.from_numpy(edge_parked(40, 300, seed=1))
-    fixes = [tcs._fix_code(b, False)
-             for b in (tcfg.bc.left, tcfg.bc.right, tcfg.bc.bottom, tcfg.bc.top)]
-    weights = tcs._stencil_weights(0.1, tcfg.D, tcfg.vx, tcfg.vy, tcfg.dx, tcfg.dy)
+    weights, fixes = tcs.stencil_constants(tcfg, 0.1)
     load, row_bits, col_bits = wrap_source(u, fixes)
     geo = tcs.wide_geometry(40, 300, 8, 4, 96)
     want = tcs.multistep_pass_plain(u, tcfg, 0.1, 8)
@@ -724,6 +776,86 @@ def test_wide_emulation_needs_the_column_bits():
     blind = stream_pass_wide_emulated(load, row_bits, lambda tc: torch.zeros_like(tc), 40,
                                       300, 8, weights, fixes, geo)
     assert float((blind - want).abs().max()) > 1e-3
+
+
+DTYPES = [torch.float32, torch.float64, torch.bfloat16]
+# (bottom, top) side codes of a fixed bottom, top, and both y sides.
+Y_CODES = {"bottom": (1, 0), "top": (0, 2), "both": (3, 1)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("x_sides", [(D, N), (P, P), (N, D)])
+def test_k1_select_rows_zero_with_y_periodic(dtype, x_sides):
+    """No fixed bottom or top side, no row selects, whatever the x sides,
+    the cut and the body."""
+    for shape in ((4096, 4096), (40, 100), (7, 300), (333, 241)):
+        for k in (1, 3, 4, 8, 9, 16, 32):
+            assert k1_select_rows(*shape, k, dtype, 0, 0) == 0
+
+
+@pytest.mark.parametrize("dtype, k, bottom, top, both", [
+    (torch.float64, 8, 480, 552, 552), (torch.float64, 4, 170, 221, 221),
+    (torch.float32, 8, 396, 396, 396), (torch.float32, 4, 121, 121, 121),
+    (torch.bfloat16, 8, 396, 396, 396)])
+def test_k1_select_rows_of_the_parity_grid(dtype, k, bottom, top, both):
+    """4096²: f64 at k = 8 (2 columns a thread, 96 threads, 24 bands, 22
+    segments of 187 rows) runs 24 bands x (12 + 11) rows with both y sides
+    fixed: the first segment's rows 6-17 (row ny - 1 wraps to window row 7,
+    row 0 is window row 8), the last's rows 174-184 of 185 (row ny - 1 at
+    176, row 0 at 177); the block-wide rule would have run 24 x (203 + 185)
+    = 9312.  A bottom side alone ends the first span at 8 + 8 + 1 rounded
+    up as well, and starts the last at 177: 24 x (12 + 8).  f32 and bf16
+    share their cut."""
+    assert k1_select_rows(4096, 4096, k, dtype, 1, 0) == bottom
+    assert k1_select_rows(4096, 4096, k, dtype, 0, 2) == top
+    assert k1_select_rows(4096, 4096, k, dtype, 1, 1) == both
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("fixed", list(Y_CODES))
+def test_k1_select_rows_follow_the_rule(dtype, fixed):
+    """The rule on each block of the cut: from the first window row of a
+    fixed side, rounded down to a multiple of 3, to KB + 1 rows past the
+    last, rounded up, at most the window; the one-column body (k > 8)
+    counts every window row of a block that holds a fixed side's row."""
+    fb, ft = Y_CODES[fixed]
+    for ny, nx in ((40, 100), (333, 241), (7, 300), (4096, 4096)):
+        for k in (1, 2, 3, 5, 8, 9, 16):
+            g = tcs.k1_geometry(ny, nx, k, dtype)
+            kb = next(b for b in (1, 2, 4, 8, 16, 32) if b >= k)
+            want = 0
+            for y0 in range(0, ny, g.rows):
+                rows = min(g.rows, ny - y0) + 2 * k
+                bits = [j for j in range(rows) if (fb and (y0 - k + j) % ny == 0)
+                        or (ft and (y0 - k + j) % ny == ny - 1)]
+                if bits and g.cpt == 1:
+                    want += rows
+                elif bits:
+                    want += min(rows, -(-(bits[-1] + kb + 1) // 3) * 3) - bits[0] // 3 * 3
+            assert k1_select_rows(ny, nx, k, dtype, fb, ft) == want * g.bands > 0
+
+
+@pytest.mark.parametrize("dtype, cuts", [
+    (torch.float32, {8: (128, 4, 1, 10, 4), 4: (128, 4, 1, 10, 4), 16: (64, 8, 4, 5, 1)}),
+    (torch.float64, {8: (64, 4, 3, 10, 2), 4: (64, 4, 2, 10, 2), 16: (64, 8, 4, 5, 1)}),
+    (torch.bfloat16, {8: (128, 4, 1, 10, 4), 4: (128, 4, 1, 10, 4), 16: (64, 8, 4, 5, 1)})],
+    ids=["f32", "f64", "bf16"])
+def test_k1_geometry_pins_the_cut_of_a_small_grid(dtype, cuts):
+    """40x100 at k = 8, 4 and 16, as (width, rows, bands, segments, cpt):
+    the wide body (WIDE_COLUMNS[dtype] columns a thread) up to
+    WIDE_MAX_STEPS, the one-column body beyond; f32 and bf16 share their
+    cut."""
+    for k, want in cuts.items():
+        g = tcs.k1_geometry(40, 100, k, dtype)
+        assert g == want and (g.cpt > 1) == (k <= tcs.WIDE_MAX_STEPS)
+
+
+def test_k1_geometry_of_the_parity_grid():
+    """4096² f64, as the parity cell runs it: at k = 8 two columns a
+    thread, 96 threads, 24 bands, 22 segments of 187 rows; at k = 4 128
+    threads, 17 bands, 23 segments of 179 rows."""
+    assert tcs.k1_geometry(4096, 4096, 8, torch.float64) == (192, 187, 24, 22, 2)
+    assert tcs.k1_geometry(4096, 4096, 4, torch.float64) == (256, 179, 17, 23, 2)
 
 
 @pytest.fixture

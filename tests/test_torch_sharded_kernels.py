@@ -30,7 +30,9 @@ from climate_sim_tpu_torch.ops import cuda_sharded as tsh
 from climate_sim_tpu_torch.ops.step import make_interior_step
 from climate_sim_tpu_torch.parallel.mesh import make_mesh
 
-from test_torch_kernel import BC_CLASSES, make_cfgs, stream_pass_emulated
+from climate_sim_tpu_torch.ops.cuda_stencil import stencil_constants
+
+from test_torch_kernel import BC_CLASSES, make_cfgs, read_window, stream_pass_emulated
 
 
 def mesh_flag_sets():
@@ -332,11 +334,11 @@ def test_streamed_region_pass_matches_plain_f64(shape, k, kh, bc_class):
     _, tcfg = make_cfgs(nx, ny, bc_class, vx=-0.3)
     big = torch.from_numpy(window(ny, nx + 5, kh, np.float64, seed=ny + nx))
     padded = big[:, 2:2 + nx + 2 * kh]
-    fixes = tsh._fixes(tcfg)
+    weights, fixes = stencil_constants(tcfg, 0.1)
     for flags in FLAG_SETS + [tsh.NO_FLAGS]:
         got = stream_pass_emulated(
             *tile_source(region_read(padded, kh), ny, nx, kh, fixes, flags), ny, nx, k,
-            tsh._weights(tcfg, 0.1), fixes)
+            weights, fixes)
         want = tsh.region_pass_plain(padded, tcfg, 0.1, k, ny, nx, flags, kh)
         torch.testing.assert_close(got, want, rtol=0, atol=1e-12, msg=f"flags {flags}")
 
@@ -350,11 +352,11 @@ def test_streamed_slab_pass_matches_plain_f64(shape, k, kh, bc_class):
     _, tcfg = make_cfgs(mx, my, bc_class, vy=0.4)
     w = window(my, mx, kh, np.float64, seed=my)
     tile, xh, yh = port_slabs(w, kh)
-    fixes = tsh._fixes(tcfg)
+    weights, fixes = stencil_constants(tcfg, 0.1)
     for flags in FLAG_SETS:
         got = stream_pass_emulated(
             *tile_source(slab_read(tile, xh, yh, kh), my, mx, kh, fixes, flags), my, mx, k,
-            tsh._weights(tcfg, 0.1), fixes)
+            weights, fixes)
         want = tsh.slab_pass_plain(tile, xh, yh, flags, tcfg, 0.1, k, kh)
         torch.testing.assert_close(got, want, rtol=0, atol=1e-12, msg=f"flags {flags}")
 
@@ -369,13 +371,30 @@ def test_streamed_carrier_pass_matches_plain_f64(extent, bc_class):
     _, tcfg = make_cfgs(mx, my, bc_class)
     w = window(my, mx, kh, np.float64, seed=extent[0])
     tile, xh, yh = port_slabs(w, kh)
-    fixes = tsh._fixes(tcfg)
+    weights, fixes = stencil_constants(tcfg, 0.1)
     for flags in [f for f in FLAG_SETS if f[1] or f[3]]:
         got = stream_pass_emulated(
             *tile_source(slab_read(tile, xh, yh, kh), my, mx, kh, fixes, flags, extent),
-            my, mx, k, tsh._weights(tcfg, 0.1), fixes)
+            my, mx, k, weights, fixes)
         want = tsh.carrier_pass_plain(tile, xh, yh, (*flags, *extent), tcfg, 0.1, k, kh)
         torch.testing.assert_close(got, want, rtol=0, atol=1e-12, msg=f"flags {flags}")
+
+
+def test_batched_slab_read_equals_the_per_row_read():
+    """The emulator reads a block group's window rows through the source in
+    one call (``read_window``): the same values and edge bits as one call a
+    row, on K5's carrier tile with its corner tile's flags, rows above and
+    below the tile and columns both sides of it included."""
+    my, mx, kh = 300, 260, 8
+    tile, xh, yh = port_slabs(window(my, mx, kh, np.float64, seed=5), kh)
+    load, row_bits, _ = tile_source(slab_read(tile, xh, yh, kh), my, mx, kh, (1, 2, 1, 2),
+                                    (0, 1, 0, 1), (37, 250))
+    y0 = torch.tensor([0, 64, 256, 0])
+    tc = torch.arange(-kh, 120)[None, :] + torch.tensor([0, 112, 224, 140])[:, None]
+    rows = 60
+    values, bits = read_window(load, row_bits, y0, tc, kh, rows)
+    assert torch.equal(values, torch.stack([load(y0 - kh + i, tc) for i in range(rows)]))
+    assert torch.equal(bits, torch.stack([row_bits(y0 - kh + i) for i in range(rows)]))
 
 
 @pytest.fixture

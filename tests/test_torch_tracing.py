@@ -6,11 +6,8 @@ its block ends; a run records each driver phase once, its loop the very
 interval of ``timing:``; under ``torch.profiler`` and with
 ``profile_dir`` the spans are ``user_annotation`` events of the chrome
 trace; ``k1.host_ns`` grows on K1's CUDA path (the stub library and
-``cuda_like`` tensors of ``test_torch_coverage_gaps.py``) and never on the
-plain path; ``k1.wide_launches`` and ``multistep_kernel_step.wide_launches``
-advance only on launches of K1's wide body; each launch counts under the
-name of its cut (``k1.cut.*``) and adds the window rows its blocks run with
-the fixed y sides' selects (``k1.select_rows``, ``k1_select_rows``); and
+``cuda_like`` tensors of ``test_torch_coverage_gaps.py``), the only
+counter a launch adds, and never on the plain path; and
 ``climate.library`` notes a build and a load.
 """
 
@@ -37,7 +34,6 @@ from test_torch_coverage_gaps import (  # noqa: F401  (fixtures)
     launch_env,
     make_cfg,
     needs_cc,
-    recorded,
     stub,
     stub_library,
 )
@@ -64,9 +60,8 @@ def quiet_run(cfg, devices=("cpu",)):
 
 @pytest.fixture
 def forbidden(monkeypatch):
-    """The tracer's clock, the profiler check, ``record_function``, the
-    name of K1's cut counter and its count of select rows all raise:
-    nothing may call them while tracing is off."""
+    """The tracer's clock, the profiler check and ``record_function`` all
+    raise: nothing may call them while tracing is off."""
 
     def boom(*args, **kw):
         raise AssertionError("called while tracing is off")
@@ -74,8 +69,6 @@ def forbidden(monkeypatch):
     monkeypatch.setattr(tracing, "clock", boom)
     monkeypatch.setattr(torch.autograd, "_profiler_enabled", boom)
     monkeypatch.setattr(torch.profiler, "record_function", boom)
-    monkeypatch.setattr(tcs, "k1_cut_counter", boom)
-    monkeypatch.setattr(tcs, "k1_select_rows", boom)
 
 
 def test_off_span_is_one_shared_noop(forbidden):
@@ -311,165 +304,14 @@ def test_k1_host_ns_grows_on_the_cuda_path(stub):
             seen.append(rec.counters["k1.host_ns"])
     assert tcs.multistep_kernel_step.launches == before + 3
     assert 0 < seen[0] < seen[1] < seen[2]
-    # k = 3 runs the wide body, which has its own counter, and its cut one;
-    # y wraps, so no row selects
-    cut = tcs.k1_cut_counter(40, 100, 3, torch.float32)
-    assert set(rec.counters) == {"k1.host_ns", "k1.wide_launches", cut,
-                                 "k1.select_rows"} and rec.spans == []
-    assert rec.counters["k1.wide_launches"] == rec.counters[cut] == 3
-    assert rec.counters["k1.select_rows"] == 0
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
-def test_k1_wide_launches_count_only_the_wide_body(stub, dtype):
-    """Passes up to WIDE_MAX_STEPS run the wide body (cpt > 1) and count in
-    both counters; a deeper pass runs the one-column body and counts in
-    neither; each launch's band (k1_geometry's) reaches the C interface."""
-    cfg, u = make_cfg(100, 40), cuda_like(torch.rand(40, 100).to(dtype))
-    launches = tcs.multistep_kernel_step.launches
-    wide = tcs.multistep_kernel_step.wide_launches
-    with tracing.collect() as rec:
-        for k in (1, 3, 8, 9, 16, 32, 4):
-            tcs.multistep_kernel_step(u, cfg, 0.1, k)
-            geo = tcs.k1_geometry(40, 100, k, dtype)
-            assert (geo.cpt > 1) == (k <= tcs.WIDE_MAX_STEPS)
-            assert recorded(stub)[1][8:] == [geo.width, geo.rows, 0]  # 0: the stream
-    assert tcs.multistep_kernel_step.launches == launches + 7
-    assert tcs.multistep_kernel_step.wide_launches == wide + 4
-    assert rec.counters["k1.wide_launches"] == 4
-
-
-@pytest.mark.parametrize("dtype,name", [(torch.float32, "f32"), (torch.float64, "f64"),
-                                        (torch.bfloat16, "bf16")])
-def test_k1_cut_counters_name_the_cut_that_ran(stub, dtype, name):
-    """Each launch adds 1 to the counter of its cut, whose name spells out
-    k1_geometry's: dtype, k, columns a thread, block threads, bands,
-    segments, rows; the same cut counts in one counter."""
-    cfg, u = make_cfg(100, 40), cuda_like(torch.rand(40, 100).to(dtype))
-    with tracing.collect() as rec:
-        for k in (8, 8, 4, 16):
-            tcs.multistep_kernel_step(u, cfg, 0.1, k)
-    cuts = {k: tcs.k1_cut_counter(40, 100, k, dtype) for k in (8, 4, 16)}
-    assert {c: n for c, n in rec.counters.items() if c.startswith("k1.cut.")} == {
-        cuts[8]: 2, cuts[4]: 1, cuts[16]: 1}
-    for k, cut in cuts.items():
-        g = tcs.k1_geometry(40, 100, k, dtype)
-        assert cut == (f"k1.cut.{name}.k{k}.c{g.cpt}.t{g.width // g.cpt}"
-                       f".b{g.bands}.s{g.segments}.r{g.rows}")
-    assert cuts[16].split(".")[4] == "c1" and cuts[8].split(".")[4] != "c1"
-
-
-def test_k1_cut_counter_of_the_parity_grid():
-    """4096² f64 at k = 8: two columns a thread, as the parity cell runs."""
-    assert tcs.k1_cut_counter(4096, 4096, 8, torch.float64).startswith("k1.cut.f64.k8.c2.")
-
-
-DTYPES = [torch.float32, torch.float64, torch.bfloat16]
-D, N, P = "dirichlet", "neumann", "periodic"
-# (left, right, bottom, top): the fixed y sides each class has
-Y_FIXED = {"bottom": (P, P, D, P), "top": (D, N, P, N), "both": (D, D, D, D),
-           "both_x_wrap": (P, P, D, N)}
-
-
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("x_sides", [(D, N), (P, P), (N, D)])
-def test_k1_select_rows_zero_with_y_periodic(dtype, x_sides):
-    """No fixed bottom or top side, no row selects, whatever the x sides,
-    the cut and the body."""
-    for shape in ((4096, 4096), (40, 100), (7, 300), (333, 241)):
-        for k in (1, 3, 4, 8, 9, 16, 32):
-            assert tcs.k1_select_rows(*shape, k, dtype, 0, 0) == 0
-
-
-@pytest.mark.parametrize("dtype, k, bottom, top, both", [
-    (torch.float64, 8, 480, 552, 552), (torch.float64, 4, 170, 221, 221),
-    (torch.float32, 8, 396, 396, 396), (torch.float32, 4, 121, 121, 121),
-    (torch.bfloat16, 8, 396, 396, 396)])
-def test_k1_select_rows_of_the_parity_grid(dtype, k, bottom, top, both):
-    """4096²: f64 at k = 8 (k1.cut.f64.k8.c2.t96.b24.s22.r187) runs 24 bands
-    x (12 + 11) rows with both y sides fixed: the first segment's rows 6-17
-    (row ny - 1 wraps to window row 7, row 0 is window row 8), the last's
-    rows 174-184 of 185 (row ny - 1 at 176, row 0 at 177); the block-wide
-    rule would have run 24 x (203 + 185) = 9312.  A bottom side alone ends
-    the first span at 8 + 8 + 1 rounded up as well, and starts the last at
-    177: 24 x (12 + 8).  f32 and bf16 share their cut."""
-    assert tcs.k1_select_rows(4096, 4096, k, dtype, 1, 0) == bottom
-    assert tcs.k1_select_rows(4096, 4096, k, dtype, 0, 2) == top
-    assert tcs.k1_select_rows(4096, 4096, k, dtype, 1, 1) == both
-
-
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("fixed", ["bottom", "top", "both"])
-def test_k1_select_rows_follow_the_rule(dtype, fixed):
-    """The rule on each block of the cut: from the first window row of a
-    fixed side, rounded down to a multiple of 3, to KB + 1 rows past the
-    last, rounded up, at most the window; the one-column body (k > 8)
-    counts every window row of a block that holds a fixed side's row."""
-    fb, ft = {"bottom": (1, 0), "top": (0, 2), "both": (3, 1)}[fixed]
-    for ny, nx in ((40, 100), (333, 241), (7, 300), (4096, 4096)):
-        for k in (1, 2, 3, 5, 8, 9, 16):
-            g = tcs.k1_geometry(ny, nx, k, dtype)
-            kb = next(b for b in (1, 2, 4, 8, 16, 32) if b >= k)
-            want = 0
-            for y0 in range(0, ny, g.rows):
-                rows = min(g.rows, ny - y0) + 2 * k
-                bits = [j for j in range(rows) if (fb and (y0 - k + j) % ny == 0)
-                        or (ft and (y0 - k + j) % ny == ny - 1)]
-                if bits and g.cpt == 1:
-                    want += rows
-                elif bits:
-                    want += min(rows, -(-(bits[-1] + kb + 1) // 3) * 3) - bits[0] // 3 * 3
-            assert tcs.k1_select_rows(ny, nx, k, dtype, fb, ft) == want * g.bands > 0
-
-
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("bc_class", list(Y_FIXED))
-def test_k1_select_rows_counter_adds_each_launch(stub, bc_class, dtype):
-    """Each traced launch adds its k1_select_rows, with the side codes the
-    launch passed to the kernel."""
-    cfg = make_cfg(100, 40, Y_FIXED[bc_class])
-    u = cuda_like(torch.rand(40, 100).to(dtype))
-    fb, ft = (tcs._fix_code(b, False) for b in (cfg.bc.bottom, cfg.bc.top))
-    with tracing.collect() as rec:
-        for k in (8, 8, 4, 16, 3):
-            tcs.multistep_kernel_step(u, cfg, 0.1, k)
-            assert recorded(stub)[1][6:8] == [fb, ft]
-    want = sum(tcs.k1_select_rows(40, 100, k, dtype, fb, ft) for k in (8, 8, 4, 16, 3))
-    assert rec.counters["k1.select_rows"] == want > 0
-
-
-def test_k1_select_rows_counter_silent_while_tracing_is_off(stub):
-    """A launch made with tracing off adds nothing: the record holds only
-    the traced launch's rows."""
-    cfg = make_cfg(100, 40, Y_FIXED["both"])
-    u = cuda_like(torch.rand(40, 100))
-    tcs.multistep_kernel_step(u, cfg, 0.1, 8)
-    with tracing.collect() as rec:
-        tcs.multistep_kernel_step(u, cfg, 0.1, 4)
-    assert rec.counters["k1.select_rows"] == tcs.k1_select_rows(40, 100, 4, torch.float32, 1, 1)
-
-
-def test_k1_wide_launches_absent_while_tracing_is_off(stub):
-    cfg, u = make_cfg(100, 40), cuda_like(torch.rand(40, 100))
-    wide = tcs.multistep_kernel_step.wide_launches
-    tcs.multistep_kernel_step(u, cfg, 0.1, 8)
-    assert tcs.multistep_kernel_step.wide_launches == wide + 1
-    with tracing.collect() as rec:
-        tcs.multistep_kernel_step(u, cfg, 0.1, 16)  # the one-column body
-    assert "k1.wide_launches" not in rec.counters
-    assert tcs.multistep_kernel_step.wide_launches == wide + 1
-    # the k = 8 launch, made with tracing off, left no cut counter behind
-    assert [c for c in rec.counters if c.startswith("k1.cut.")] == [
-        tcs.k1_cut_counter(40, 100, 16, torch.float32)]
+    assert set(rec.counters) == {"k1.host_ns"} and rec.spans == []
 
 
 def test_k1_host_ns_never_on_the_plain_path():
     cfg = make_cfg(100, 40)
-    wide = tcs.multistep_kernel_step.wide_launches
     with tracing.collect() as rec:
         out = tcs.multistep_kernel_step(torch.rand(40, 100), cfg, 0.1, 3)
     assert out.shape == (40, 100) and rec.counters == {}
-    assert tcs.multistep_kernel_step.wide_launches == wide
 
 
 @needs_cc
