@@ -139,7 +139,8 @@ phase 7's bench_4096 slab and 4001² carrier runs, each also under
 ``disable_graphs()``.
 ``python3 chip_smoke.py --parity-only`` phases 1, 2 and ``phase_parity``
 (K1 in f64 with Dirichlet on all four sides at 4096², k = 8 and 4, against
-its plain version; each pass's output digest and time by BC class).
+its plain version; each pass's output digest, and its time by BC class in
+each body of the wide core, one-warp blocks and wider ones).
 ``--fuzz-seed N`` (with any of these, or alone) draws the fuzz from N
 instead of FUZZ_SEED.
 """
@@ -249,7 +250,8 @@ _SOURCES = {"WrapSource": "K1", "RegionSource": "K2/K3", "SlabSource": "K4/K5"}
 def kernel_resources(log):
     """Per kernel instantiation in ptxas' -v output: (kernels, dtype, level
     count, columns a thread, registers, stack frame bytes, spill store
-    bytes, spill load bytes)."""
+    bytes, spill load bytes, block: "one warp" for the wide body's one-warp
+    instantiation, else "")."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -262,11 +264,12 @@ def kernel_resources(log):
             frame = tuple(int(v) for v in m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            k = re.search(r"band_kernelI(13__nv_bfloat16f|ff|dd)Li(\d+)ELi(\d+)E.*?"
-                          r"(WrapSource|RegionSource|SlabSource)", name)
+            k = re.search(r"band_kernelI(13__nv_bfloat16f|ff|dd)Li(\d+)ELi(\d+)ELb([01])E"
+                          r".*?(WrapSource|RegionSource|SlabSource)", name)
             if k:
-                out.append((_SOURCES[k.group(4)], _DTYPES[k.group(1)], int(k.group(2)),
-                            int(k.group(3)), int(m.group(1)), *frame))
+                out.append((_SOURCES[k.group(5)], _DTYPES[k.group(1)], int(k.group(2)),
+                            int(k.group(3)), int(m.group(1)), *frame,
+                            "one warp" if k.group(4) == "1" else ""))
             name = None
     return out
 
@@ -291,10 +294,10 @@ def phase_build():
     native.load_library()
     print(f"[build] {os.path.relpath(native.library_path(), HERE)}: the native snapshot"
           " writer loaded")
-    for kern, dtype, levels, cols, regs, frame, st, ld in sorted(res):
+    for kern, dtype, levels, cols, regs, frame, st, ld, block in sorted(res):
         spill = f"spills {st} B stored, {ld} B loaded" if st or ld else "no spills"
-        print(f"[build] {kern} {dtype} {levels} levels x{cols} columns: {regs} registers,"
-              f" {frame} B stack frame, {spill}")
+        print(f"[build] {kern} {dtype} {levels} levels x{cols} columns{' ' * bool(block)}"
+              f"{block}: {regs} registers, {frame} B stack frame, {spill}")
     if kl.built and not res:
         fail("no kernel resources in the build log")
     bad = [r for r in res if (r[1] != "float64" or r[3] > 1) and (r[6] or r[7])]
@@ -546,16 +549,43 @@ def phase_bench(torch, device, k1_ms):
 PARITY_STEPS = (8, 4)
 
 
+def k1_at(torch, cs, u, cfg, k, g):
+    """K1's C entry on ``u`` at the cut ``g`` (a ``K1Geometry``, not
+    necessarily ``k1_geometry``'s), on the current stream, into a fresh
+    output: the wrapper's launch at another cut."""
+    from climate_sim_tpu_torch.ops._build import load_library
+
+    args = cs.k1_arguments(cfg.ny, cfg.nx, k, u.dtype, cs.stencil_constants(cfg, cfg.dt), g)
+    out = torch.empty_like(u)
+    err = load_library().lib.climate_multistep_stencil(
+        u.data_ptr(), out.data_ptr(), *args, torch.cuda.current_stream(u.device).cuda_stream)
+    if err:
+        fail(f"K1 at {g}: CUDA error {err}")
+    return out
+
+
+def body_cuts(cs, ny, nx, k, dtype):
+    """The wide body's cut of least ``wide_cost`` in blocks of one warp and
+    in wider blocks, by body ("one-warp", "block"), of the cuts
+    ``k1_geometry`` weighs (``wide_cuts``)."""
+    cuts = cs.wide_cuts(ny, nx, k, dtype)
+    return {body: min((g for g in cuts if g.one_warp == one), key=lambda g: cs.wide_cost(g, k))
+            for body, one in (("one-warp", True), ("block", False))}
+
+
 def phase_parity(torch, device):
     """``--parity-only``: K1 at 4096² in f64 with Dirichlet on all four
     sides and the parity physics (v (0.5, 0)), k = 8 and 4, against its
     plain version, with the cut it runs (``k1_geometry``); then each
     pass in f64 and f32 timed by graph replay in turns with the same pass
     under bench_4096's BCs (no fixed y side, so no block takes the wide
-    body's select path) and under P,P,D,N (fixed y sides, live x wrap).
+    body's select path) and under P,P,D,N (fixed y sides, live x wrap),
+    each in both bodies of the wide core, at the cut of least cost in
+    one-warp blocks and in wider blocks (:func:`body_cuts`; one of them is
+    the wrapper's), whose outputs must be the wrapper's bit for bit.
     Each pass's output is printed as a SHA-256 digest, so that two
     checkouts' kernels can be held to each other bit for bit.  Returns
-    {"<dtype> k<k>": {BC class: [ms, ms]}}."""
+    {"<dtype> k<k>": {"<BC class> <body>": [ms, ms]}}."""
     from climate_sim_tpu_torch.ops import cuda_stencil as cs
 
     nx = ny = BENCH_GRID
@@ -577,16 +607,27 @@ def phase_parity(torch, device):
         v = u.to(dtype)
         name = str(dtype).removeprefix("torch.")
         for k in PARITY_STEPS:
-            fns = {cls: lambda c=c: cs.multistep_kernel_step(v, c, c.dt, k)
-                   for cls, c in cfgs.items()}
-            for cls, fn in fns.items():
-                digest = hashlib.sha256(fn().cpu().numpy().tobytes()).hexdigest()[:16]
+            cuts = body_cuts(cs, ny, nx, k, dtype)
+            default = cs.k1_geometry(ny, nx, k, dtype)
+            fns = {}
+            for cls, c in cfgs.items():
+                want = cs.multistep_kernel_step(v, c, c.dt, k)
+                digest = hashlib.sha256(want.cpu().numpy().tobytes()).hexdigest()[:16]
                 print(f"[parity] digest {name} k={k} {cls}: {digest}")
-            ms = out[f"{name} k{k}"] = in_turns(
-                torch, device, fns, ("D4", "bench", "MIX2", "MIX2", "bench", "D4"),
-                dict.fromkeys(fns, 60), graphed=tuple(fns))
-            print(f"[parity] {nx}x{ny} {name} k={k} by BC class, ms per pass: " + ", ".join(
-                f"{cls} {' / '.join(f'{t:.4f}' for t in ts)}" for cls, ts in ms.items()))
+                for body, g in cuts.items():
+                    fns[f"{cls} {body}"] = lambda c=c, g=g: k1_at(torch, cs, v, c, k, g)
+                    if not torch.equal(fns[f"{cls} {body}"](), want):
+                        fail(f"K1 {name} k={k} {cls}: the {body} body's output at {g} is not"
+                             f" the wrapper's at {default}")
+            order = list(fns) + list(fns)[::-1]
+            ms = out[f"{name} k{k}"] = in_turns(torch, device, fns, order,
+                                                dict.fromkeys(fns, 60), graphed=tuple(fns))
+            print(f"[parity] {nx}x{ny} {name} k={k}: " + "; ".join(
+                f"{body} {tuple(g)}{' (default)' if g == default else ''}"
+                for body, g in cuts.items()))
+            print(f"[parity] {nx}x{ny} {name} k={k} by BC class and body, ms per pass: "
+                  + ", ".join(f"{key} {' / '.join(f'{t:.4f}' for t in ts)}"
+                              for key, ts in ms.items()))
     return out
 
 

@@ -24,11 +24,13 @@
 // and, at a warp's ends, a small exchange row, so the shared-memory pipe
 // that bound the one-column body (one store and two loads an update)
 // carries a few accesses per 4 x k updates, and each level has 4
-// independent FMA chains.  What bounds the wide body is how many warps an
-// SM holds (its registers allow 12) against the latency of each row's
-// chain through the k levels; the wrapper cuts the field into one wave of
-// such blocks, with short segments where the field is too small to fill
-// the SMs (ops/cuda_stencil.py::k1_geometry).  Deeper passes run the
+// independent FMA chains.  What bounds the wide body is its issue, how
+// many warps an SM holds (its registers allow 12) and the latency of each
+// row's chain through the k levels; the wrapper cuts the field into one
+// wave of such blocks, with short segments where the field is too small to
+// fill the SMs (ops/cuda_stencil.py::k1_geometry), and where its cut is
+// one warp wide the band needs no exchange row and no barrier, which
+// takes about a sixth of a row's instructions.  Deeper passes run the
 // one-column body (band_w threads of one column each).  wgmma and TMA are
 // not used: the update is 9 flops a cell, and TMA fills out-of-bounds
 // with zeros, not wrapped rows.

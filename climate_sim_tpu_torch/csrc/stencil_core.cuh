@@ -85,12 +85,16 @@
 // rotation), and a copy without them on the rest.  A warp with no such
 // row runs an instantiation that holds only the copy without selects.
 // The copies meet at one barrier a row (barrier.sync without .aligned).
+// A block of one warp (the band of 32 threads) runs an instantiation of
+// its own: its outer lanes' x operands beyond the band fall in the halo it
+// discards, so it has no exchange rows and no barrier, and its warps drift
+// freely against each other's chains.
 // Its loop body covers three rows, the registers' rotation; ring slot and
 // parity step at run time, which keeps the loop small enough for the
 // instruction cache (a six-row body of four columns ran at less than half
 // the speed).  The launch bounds hold it to 170
-// registers, so three blocks of 128 threads (12 warps) fit an SM; the
-// wrapper cuts the field into one wave of blocks
+// registers, so three blocks of 128 threads (or 12 of one warp) fit an
+// SM; the wrapper cuts the field into one wave of blocks
 // (ops/cuda_stencil.py::k1_geometry), since on the H100 the warps an SM
 // holds decide its speed more than the halo that taller segments and
 // wider bands save, and on a field too small to fill the SMs each row's
@@ -129,6 +133,9 @@ constexpr int WIDE_COLS = 4;
 constexpr int WIDE_COLS_F64 = 2;
 constexpr int WIDE_THREADS = 128;
 constexpr int WIDE_MIN_BLOCKS = 3;
+// The warps an SM holds of the wide body: blocks of one warp (the one-warp
+// body) are held to as many a block as the wider blocks make together.
+constexpr int WIDE_WARPS = WIDE_MIN_BLOCKS * WIDE_THREADS / 32;
 
 // Side codes, in the order left, right, bottom, top.
 constexpr int FIX_NONE = 0;       // live periodic: read the neighbour
@@ -412,11 +419,11 @@ __host__ __device__ constexpr int wide_stride(int band_w) {
   return band_w + 2 * wide_pad<T>();
 }
 constexpr int WIDE_SLOTS = WIDE_THREADS / 32 + 2;
-template <typename T, typename C, int KB, int CPT>
+template <typename T, typename C, int KB, int CPT, bool ONE_WARP>
 __host__ __device__ constexpr size_t wide_smem_bytes(int band_w) {
   return RING * static_cast<size_t>(wide_stride<T>(band_w)) *
              sizeof(typename Word<T>::type) +
-         2 * static_cast<size_t>(KB) * WIDE_SLOTS * 2 * sizeof(C);
+         (ONE_WARP ? 0 : 2 * static_cast<size_t>(KB) * WIDE_SLOTS * 2 * sizeof(C));
 }
 
 // cpt words of a ring row into registers, in one shared load where they
@@ -490,7 +497,19 @@ __device__ __forceinline__ void wide_sync() {
 // the rest a copy of the loop without them; without SELECTS every row runs
 // that copy.  The loop body covers three rows, the registers' rotation;
 // the ring slot and the exchange parity step at run time.
-template <typename T, typename C, int KB, int CPT, bool SELECTS, typename Source>
+//
+// ONE_WARP: the block is one warp, the whole band.  Lane 0's xm and lane
+// 31's xp are then the band's outer halo columns, whose levels the band
+// discards (a garbage operand there reaches k - 1 columns in by level k,
+// and the band writes none of its outer k), so they take what the
+// shuffles give (the lane's own value) and the exchange rows go: no shared
+// access but the ring's, and no barrier, since each thread reads back only
+// the ring words it copied itself (cp.async.wait_group orders them for
+// it).  The x sides' selects stay in the copy without selects, as in
+// wider blocks: a copy without them for the warps that hold no fixed x
+// side ran the select-free pass slower where it shared an SM with the
+// other copy, as a second copy of the loop does (PERF.md).
+template <typename T, typename C, int KB, int CPT, bool ONE_WARP, bool SELECTS, typename Source>
 __device__ __forceinline__ void stream_band_wide(const Source& src, T* __restrict__ out,
                                                  const Pass& p, unsigned char* smem,
                                                  int y0, int rows, int tc0,
@@ -590,7 +609,7 @@ __device__ __forceinline__ void stream_band_wide(const Source& src, T* __restric
     constexpr int NOW = U, ONE = (U + 2) % 3, TWO = (U + 1) % 3;
     constexpr bool EDGES = decltype(edges)::value;
     cp_async_wait<AHEAD - 1>();
-    wide_sync();
+    if constexpr (!ONE_WARP) wide_sync();
     {
       W v[CPT];
       load_words<CPT>(ring + slot * rs, v);
@@ -611,17 +630,22 @@ __device__ __forceinline__ void stream_band_wide(const Source& src, T* __restric
     C left[KB], right[KB];
 #pragma unroll
     for (int s = 0; s < KB; ++s) {
-      const C far = end_lane ? old[s * SL + xr] : static_cast<C>(0);
+      [[maybe_unused]] C far;
+      if constexpr (!ONE_WARP) far = end_lane ? old[s * SL + xr] : static_cast<C>(0);
       left[s] = __shfl_up_sync(FULL, q[s][ONE][CPT - 1], 1);
       right[s] = __shfl_down_sync(FULL, q[s][ONE][0], 1);
-      if (lo_lane) left[s] = far;
-      if (hi_lane) right[s] = far;
+      if constexpr (!ONE_WARP) {
+        if (lo_lane) left[s] = far;
+        if (hi_lane) right[s] = far;
+      }
       // A fixed x side at the thread's first (last) column: its xm (xp)
       // is the ghost, whatever lies beyond.
       if (colbits & 1u) left[s] = self_l ? q[s][ONE][0] : g_l;
       if ((colbits >> (2 * CPT - 1)) & 1u) right[s] = self_r ? q[s][ONE][CPT - 1] : g_r;
     }
-    if (end_lane) cur[xw] = hi_lane ? q[0][NOW][CPT - 1] : q[0][NOW][0];
+    if constexpr (!ONE_WARP) {
+      if (end_lane) cur[xw] = hi_lane ? q[0][NOW][CPT - 1] : q[0][NOW][0];
+    }
 #pragma unroll
     for (int s = 1; s <= KB; ++s) {
       C r[CPT];
@@ -657,7 +681,9 @@ __device__ __forceinline__ void stream_band_wide(const Source& src, T* __restric
       if (s < KB) {
 #pragma unroll
         for (int j = 0; j < CPT; ++j) q[s][NOW][j] = r[j];
-        if (end_lane) cur[s * SL + xw] = hi_lane ? r[CPT - 1] : r[0];
+        if constexpr (!ONE_WARP) {
+          if (end_lane) cur[s * SL + xw] = hi_lane ? r[CPT - 1] : r[0];
+        }
       } else {
 #pragma unroll
         for (int j = 0; j < CPT; ++j) last[j] = r[j];
@@ -676,9 +702,11 @@ __device__ __forceinline__ void stream_band_wide(const Source& src, T* __restric
       dst += p.ld_out;
     }
     slot = slot == RING - 1 ? 0 : slot + 1;
-    C* t = cur;
-    cur = old;
-    old = t;
+    if constexpr (!ONE_WARP) {
+      C* t = cur;
+      cur = old;
+      old = t;
+    }
   };
 
   constexpr std::false_type kFree{};
@@ -718,11 +746,13 @@ __device__ __forceinline__ void stream_band_wide(const Source& src, T* __restric
 // One block per band segment (grid: bands x segments).  minBlocks = 1 lets
 // ptxas keep every level's rows in registers: without it, it trades the
 // 8- and 16-level f32/bf16 kernels down to 80 registers and spills.  CPT
-// columns a thread: 1 runs stream_band, more the wide body.
-template <typename T, typename C, int KB, int CPT, typename Source>
-__global__ void __launch_bounds__(CPT == 1 ? MAX_BAND : WIDE_THREADS,
-                                  CPT == 1 ? 1 : WIDE_MIN_BLOCKS)
+// columns a thread: 1 runs stream_band, more the wide body, in blocks of
+// one warp (ONE_WARP, WIDE_WARPS of them an SM) or of several.
+template <typename T, typename C, int KB, int CPT, bool ONE_WARP, typename Source>
+__global__ void __launch_bounds__(CPT == 1 ? MAX_BAND : ONE_WARP ? 32 : WIDE_THREADS,
+                                  CPT == 1 ? 1 : ONE_WARP ? WIDE_WARPS : WIDE_MIN_BLOCKS)
     band_kernel(Source src, T* __restrict__ out, Pass p) {
+  static_assert(!ONE_WARP || CPT > 1, "the one-warp body is the wide body's");
   extern __shared__ __align__(16) unsigned char smem[];
   const int k = p.s.k;
   const int x0 = blockIdx.x * (p.band_w - 2 * k);  // first output column
@@ -732,10 +762,15 @@ __global__ void __launch_bounds__(CPT == 1 ? MAX_BAND : WIDE_THREADS,
 
   // Zero the shared layout (pads and start-up rows hold zeros, not stale
   // bits), and decide whether this block's window touches a fixed side.
-  const int words = static_cast<int>(
-      (CPT == 1 ? band_smem_bytes<T, C, KB>() : wide_smem_bytes<T, C, KB, CPT>(p.band_w)) / 4);
-  for (int i = threadIdx.x; i < words; i += blockDim.x) {
-    reinterpret_cast<uint32_t*>(smem)[i] = 0u;
+  // A one-warp block's layout is its threads' ring words alone, each
+  // written before it is read.
+  if constexpr (!ONE_WARP) {
+    const int words = static_cast<int>(
+        (CPT == 1 ? band_smem_bytes<T, C, KB>()
+                  : wide_smem_bytes<T, C, KB, CPT, false>(p.band_w)) / 4);
+    for (int i = threadIdx.x; i < words; i += blockDim.x) {
+      reinterpret_cast<uint32_t*>(smem)[i] = 0u;
+    }
   }
   unsigned colbits = 0;
 #pragma unroll
@@ -773,7 +808,7 @@ __global__ void __launch_bounds__(CPT == 1 ? MAX_BAND : WIDE_THREADS,
     }
     first = __reduce_min_sync(0xffffffffu, first);
     last = __reduce_max_sync(0xffffffffu, last);
-    __syncthreads();  // the zeroed layout before the first loads
+    if constexpr (!ONE_WARP) __syncthreads();  // the zeroed layout before the first loads
     constexpr unsigned outer = 1u | (1u << (2 * CPT - 1));
     int lo = rows, hi = rows;  // no bit row: no selects
     if (__any_sync(0xffffffffu, (colbits & ~outer) != 0u)) {
@@ -786,25 +821,38 @@ __global__ void __launch_bounds__(CPT == 1 ? MAX_BAND : WIDE_THREADS,
     // loop without selects alone, which kept the select-free passes as fast
     // as before on the H100 where the other layouts tried did not (PERF.md).
     if (lo >= rows) {
-      stream_band_wide<T, C, KB, CPT, false>(src, out, p, smem, y0, rows, tc, colbits, lo, hi);
+      stream_band_wide<T, C, KB, CPT, ONE_WARP, false>(src, out, p, smem, y0, rows, tc, colbits,
+                                                       lo, hi);
     } else {
-      stream_band_wide<T, C, KB, CPT, true>(src, out, p, smem, y0, rows, tc, colbits, lo, hi);
+      stream_band_wide<T, C, KB, CPT, ONE_WARP, true>(src, out, p, smem, y0, rows, tc, colbits,
+                                                      lo, hi);
     }
   }
 }
 
-template <typename T, typename C, int KB, int CPT, typename Source>
-cudaError_t launch_levels(const Source& src, T* out, const Pass& p,
-                          cudaStream_t stream) {
+template <typename T, typename C, int KB, int CPT, bool ONE_WARP, typename Source>
+cudaError_t launch_kernel(const Source& src, T* out, const Pass& p, cudaStream_t stream) {
   const size_t smem = CPT == 1 ? band_smem_bytes<T, C, KB>()
-                               : wide_smem_bytes<T, C, KB, CPT>(p.band_w);
-  const cudaError_t e = allow_smem(band_kernel<T, C, KB, CPT, Source>, smem);
+                               : wide_smem_bytes<T, C, KB, CPT, ONE_WARP>(p.band_w);
+  const cudaError_t e = allow_smem(band_kernel<T, C, KB, CPT, ONE_WARP, Source>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.nx + p.band_w - 2 * p.s.k - 1) / (p.band_w - 2 * p.s.k),
                   (p.ny + p.seg_rows - 1) / p.seg_rows);
   if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-  band_kernel<T, C, KB, CPT, Source><<<grid, p.band_w / CPT, smem, stream>>>(src, out, p);
+  band_kernel<T, C, KB, CPT, ONE_WARP, Source><<<grid, p.band_w / CPT, smem, stream>>>(src, out,
+                                                                                      p);
   return cudaGetLastError();
+}
+
+// A band of one warp (band_w == 32 x CPT) of the wide body runs its
+// one-warp instantiation.
+template <typename T, typename C, int KB, int CPT, typename Source>
+cudaError_t launch_levels(const Source& src, T* out, const Pass& p,
+                          cudaStream_t stream) {
+  if constexpr (CPT > 1) {
+    if (p.band_w == 32 * CPT) return launch_kernel<T, C, KB, CPT, true>(src, out, p, stream);
+  }
+  return launch_kernel<T, C, KB, CPT, false>(src, out, p, stream);
 }
 
 // Launch one pass of the core on the current stream, with the least level

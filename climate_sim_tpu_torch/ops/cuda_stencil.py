@@ -111,6 +111,12 @@ class K1Geometry(NamedTuple):
     segments: int
     cpt: int
 
+    @property
+    def one_warp(self) -> bool:
+        """Whether the wide body runs this cut in blocks of one warp (its
+        one-warp instantiation: no exchange rows, no barrier a row)."""
+        return self.cpt > 1 and self.width == 32 * self.cpt
+
 
 def wide_geometry(ny: int, nx: int, k: int, cpt: int, threads: int,
                   blocks_per_sm: int = 0) -> K1Geometry:
@@ -126,48 +132,69 @@ def wide_geometry(ny: int, nx: int, k: int, cpt: int, threads: int,
     return K1Geometry(width, rows, bands, -(-ny // rows), cpt)
 
 
+# What a row of a one-warp block costs, in tenths of a wider block's, in a
+# pass of at least ONE_WARP_MIN_STEPS steps: its warp's issue (no exchange
+# row, no barrier) and its chain's latency through the levels (no barrier
+# to wait at).  In a pass of fewer steps the saving did not show: such a
+# pass does little work a byte, a 4096² one nears its bytes, and a one-warp
+# band's extra halo columns add to them; so there its row costs what a
+# wider block's does.  Fitted on the H100 to K1's times from 256² to 4096²,
+# f32 and f64, k = 8 and 4 (PERF.md).
+ONE_WARP_ISSUE, ONE_WARP_CHAIN = 6, 7
+ONE_WARP_MIN_STEPS = 5
+
+
 def wide_cost(g: K1Geometry, k: int) -> int:
-    """A wide cut's time, in units of one warp's issue for a row: each of
-    a segment's window rows costs the busiest SM its warps' issue (whole
-    blocks, spread evenly over the SMS) plus, in each wave of up to
-    WIDE_WARPS_PER_SM warps, the latency of the row's chain through the
-    k levels, which is worth about WIDE_WARPS_PER_SM warps' issue.  So the
-    chain sets the pace of a grid that leaves SMs few warps, and a taller
-    segment (fewer lead-in rows) pays only where the SMs are full.  Fitted
-    on the H100 to K1's times from 256² to 4096² (PERF.md)."""
+    """A wide cut's time, in tenths of one warp's issue for a row of a
+    block of several warps: each of a segment's window rows costs the
+    busiest SM its warps' issue (whole blocks, spread evenly over the SMS)
+    plus, in each wave of up to WIDE_WARPS_PER_SM warps, the latency of the
+    row's chain through the k levels, which is worth about
+    WIDE_WARPS_PER_SM warps' issue.  So the chain sets the pace of a grid
+    that leaves SMs few warps, and a taller segment (fewer lead-in rows)
+    pays only where the SMs are full.  At k >= ONE_WARP_MIN_STEPS a
+    one-warp block's row costs ONE_WARP_ISSUE and ONE_WARP_CHAIN tenths of
+    that.  Fitted on the H100 to K1's times from 256² to 4096² (PERF.md)."""
     warps = -(-g.bands * g.segments // SMS) * (g.width // g.cpt // 32)
     waves = -(-warps // WIDE_WARPS_PER_SM)
-    return (g.rows + 2 * k) * (warps + waves * WIDE_WARPS_PER_SM)
+    lighter = g.one_warp and k >= ONE_WARP_MIN_STEPS
+    issue, chain = (ONE_WARP_ISSUE, ONE_WARP_CHAIN) if lighter else (10, 10)
+    return (g.rows + 2 * k) * (issue * warps + chain * waves * WIDE_WARPS_PER_SM)
+
+
+def wide_cuts(ny: int, nx: int, k: int, dtype: torch.dtype) -> List[K1Geometry]:
+    """The wide body's cuts that :func:`k1_geometry` weighs for an (ny, nx)
+    field at k <= WIDE_MAX_STEPS: WIDE_COLUMNS[dtype] columns a thread,
+    blocks of whole warps (at most WIDE_THREADS threads, narrowest first),
+    each in one wave of 1, 2, ... blocks an SM (:func:`wide_geometry`, up
+    to WIDE_WARPS_PER_SM warps).  Bands wider than the field's width with
+    its halo are not tried."""
+    cpt = WIDE_COLUMNS[dtype]
+    cuts = []
+    for threads in range(32, WIDE_THREADS + 1, 32):
+        if threads * cpt <= 2 * k:
+            continue
+        cuts += [wide_geometry(ny, nx, k, cpt, threads, per_sm)
+                 for per_sm in range(1, WIDE_WARPS_PER_SM // (threads // 32) + 1)]
+        if threads * cpt - 2 * k >= nx:  # one band holds the width: wider ones only cost
+            break
+    return cuts
 
 
 @functools.lru_cache(maxsize=256)
 def k1_geometry(ny: int, nx: int, k: int, dtype: torch.dtype) -> K1Geometry:
     """The geometry K1 runs an (ny, nx) field with at pass size k.
 
-    Up to WIDE_MAX_STEPS steps, the wide body: WIDE_COLUMNS[dtype] columns
-    a thread, and of the blocks of whole warps (at most WIDE_THREADS) in
-    one wave of 1, 2, ... blocks an SM (:func:`wide_geometry`, up to
-    WIDE_WARPS_PER_SM warps) the cut of least :func:`wide_cost`; on a tie
-    the narrower block, then the fewer blocks.  Bands wider than the
-    field's width with its halo are not tried.  Deeper passes (whose
-    levels do not fit the registers of several columns) take the
-    one-column body at :func:`band_geometry`'s geometry."""
+    Up to WIDE_MAX_STEPS steps, the wide body: of :func:`wide_cuts` the
+    cut of least :func:`wide_cost`; on a tie the narrower block, then the
+    fewer blocks.  Deeper passes (whose levels do not fit the registers of
+    several columns) take the one-column body at :func:`band_geometry`'s
+    geometry."""
     if not (1 <= k <= MAX_STEPS_PER_PASS and ny >= 1 and nx >= 1):
         raise ValueError(f"no band geometry for ({ny}, {nx}) at k={k}")
     if k > WIDE_MAX_STEPS:
         return K1Geometry(*band_geometry(ny, nx, k), 1)
-    cpt = WIDE_COLUMNS[dtype]
-    best = None
-    for threads in range(32, WIDE_THREADS + 1, 32):
-        if threads * cpt <= 2 * k:
-            continue
-        for per_sm in range(1, WIDE_WARPS_PER_SM // (threads // 32) + 1):
-            g = wide_geometry(ny, nx, k, cpt, threads, per_sm)
-            if best is None or wide_cost(g, k) < wide_cost(best, k):
-                best = g
-        if threads * cpt - 2 * k >= nx:  # one band holds the width: wider ones only cost
-            break
-    return best
+    return min(wide_cuts(ny, nx, k, dtype), key=lambda g: wide_cost(g, k))
 
 
 class StencilConstants(NamedTuple):
@@ -224,15 +251,24 @@ def stencil_constants(cfg: SimConfig, dt: float) -> StencilConstants:
     return _constants(*_constants_key(cfg, dt))
 
 
-@functools.lru_cache(maxsize=256)
-def _k1_arguments(ny: int, nx: int, k: int, dtype: torch.dtype, key: tuple) -> tuple:
+def k1_arguments(ny: int, nx: int, k: int, dtype: torch.dtype, c: StencilConstants,
+                 g: K1Geometry) -> tuple:
     """A K1 launch's C arguments between its two pointers and its stream,
-    for :func:`_constants_key`'s ``key``: the shape, k, the dtype's code,
-    the weights, the side codes, the Dirichlet value and
-    :func:`k1_geometry`'s band width and segment rows."""
-    c = _constants(*key)
-    g = k1_geometry(ny, nx, k, dtype)
+    at the cut ``g``: the shape, k, the dtype's code, the weights and side
+    codes of ``c``, the Dirichlet value and ``g``'s band width and segment
+    rows.  The wrapper passes :func:`k1_geometry`'s cut; a caller that
+    times or tests another cut passes that one."""
     return (ny, nx, k, _DTYPE_CODES[dtype], *c.weights, *c.fixes, 0.0, g.width, g.rows)
+
+
+@functools.lru_cache(maxsize=256)
+def _k1_launch(ny: int, nx: int, k: int, dtype: torch.dtype,
+               key: tuple) -> Tuple[tuple, bool]:
+    """The wrapper's C arguments (:func:`k1_arguments` at
+    :func:`k1_geometry`'s cut) for :func:`_constants_key`'s ``key``, and
+    whether that cut runs in one-warp blocks."""
+    g = k1_geometry(ny, nx, k, dtype)
+    return k1_arguments(ny, nx, k, dtype, _constants(*key), g), g.one_warp
 
 
 def pick_steps_per_pass(cfg: SimConfig, chunk: int) -> int:
@@ -309,7 +345,9 @@ def multistep_kernel_step(
     plain version.  ``multistep_kernel_step.launches`` counts the launches;
     while tracing is on, the counter ``k1.host_ns`` adds the host time of
     each launch from entry to the C call (which blocks while the launch
-    queue is full, so it is left out).
+    queue is full, so it is left out), and ``k1.warp_bands`` the launches
+    whose cut runs the wide body's one-warp instantiation
+    (:attr:`K1Geometry.one_warp`).
     """
     traced = tracing.ON
     if traced:
@@ -319,13 +357,15 @@ def multistep_kernel_step(
         return multistep_pass_plain(u, cfg, dt, k)
     if u.device.type != "cuda":
         raise RuntimeError(f"K1 runs on cuda or cpu tensors, not {u.device}")
-    args = _k1_arguments(cfg.ny, cfg.nx, k, u.dtype, _constants_key(cfg, dt))
+    args, one_warp = _k1_launch(cfg.ny, cfg.nx, k, u.dtype, _constants_key(cfg, dt))
     lib = _build.load_library().lib
     out = torch.empty_like(u)
     with on_device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         if traced:
             tracing.add("k1.host_ns", tracing.clock() - entered)
+            if one_warp:
+                tracing.add("k1.warp_bands", 1)
         err = lib.climate_multistep_stencil(u.data_ptr(), out.data_ptr(), *args, stream)
     if err:
         msg = lib.climate_cuda_error_string(err).decode()

@@ -27,8 +27,9 @@ The names (all under :data:`PREFIX`) and where the driver opens them:
 ``climate.ic_stats``, ``climate.capture``, ``climate.warmup``,
 ``climate.loop`` (the interval ``timing: total_max`` measures),
 ``climate.finish``, and ``climate.library`` (the kernel library's build
-or load, once a process; its note says which).  The counter
-``k1.host_ns`` holds K1's host nanoseconds a launch up to the C call
+or load, once a process; its note says which).  The counters
+``k1.host_ns`` (K1's host nanoseconds a launch up to the C call) and
+``k1.warp_bands`` (K1's launches in one-warp blocks) are K1's wrapper's
 (``ops/cuda_stencil.py``).
 """
 

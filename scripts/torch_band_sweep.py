@@ -10,14 +10,16 @@ other geometries, bench BCs, timing the launches of a CUDA graph replay
 (``chip_smoke.graph_ms``), twice each:
 
 * K1 (whose passes up to 8 steps run the wide body, ``WIDE_COLUMNS[dtype]``
-  columns a thread) on a 4096² field at k = 8 in f32, bf16 and f64 and at
-  k = 4 in f32, and on the smaller grids users run (2048² and 1024² f32,
-  ``configs/dev.yaml``'s 512² f32, ``configs/parity_f64.yaml``'s 256²
-  f64, k = 8): for every block of whole warps up to ``WIDE_THREADS``
-  threads, with as many segments as fill 1, 2, 3, 4, 6 or 12 blocks an SM
-  (up to ``WIDE_WARPS_PER_SM`` warps), and on grids up to 2048² also
-  segments of 4, 8, 16 and 32 rows.  Each geometry's output is held bit
-  for bit to that of ``k1_geometry``'s;
+  columns a thread, in one-warp blocks or wider ones) on a 4096² field at
+  k = 8 in f32, bf16 and f64 and at k = 4 in f32 and f64, and on the
+  smaller grids users run (2048² and 1024² f32, ``configs/dev.yaml``'s
+  512² f32, ``configs/parity_f64.yaml``'s 256² f64, k = 8 and 4), the
+  cases ``wide_cost`` is fitted on: every cut ``k1_geometry`` weighs
+  (``wide_cuts``: each block of whole warps up to ``WIDE_THREADS``
+  threads, with as many segments as fill 1, 2, ... blocks an SM, up to
+  ``WIDE_WARPS_PER_SM`` warps), and on grids up to 2048² also segments of
+  4, 8, 16 and 32 rows.  Each geometry's output is held bit for bit to
+  that of ``k1_geometry``'s;
 * K2 on a 2050² padded tile (one step), with ``conv2d`` computing the same
   function (the five weights as a 3x3 cross, TF32 off) beside it;
 * K4 on a 2048² tile and its slabs at k = 8 (a corner tile's flags);
@@ -43,8 +45,10 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (grid side, dtype, k) of K1's cases.
 K1_CASES = [(4096, "float32", 8), (4096, "bfloat16", 8), (4096, "float64", 8),
-            (4096, "float32", 4), (2048, "float32", 8), (1024, "float32", 8),
-            (512, "float32", 8), (256, "float64", 8)]
+            (4096, "float32", 4), (4096, "float64", 4), (2048, "float32", 8),
+            (2048, "float32", 4), (1024, "float32", 8), (1024, "float32", 4),
+            (512, "float32", 8), (512, "float32", 4), (256, "float64", 8),
+            (256, "float64", 4)]
 GEOMETRIES = {
     "K2": [(256, 16), (128, 32), (128, 16), (128, 8), (96, 16), (64, 16)],
     "K4": [(256, 40), (128, 96), (128, 64), (128, 48), (96, 64), (64, 64)],
@@ -77,31 +81,25 @@ def main(argv) -> int:
 
     for n, dname, k in K1_CASES:
         cfg = smoke.make_cfg(n, n, "bench")
-        weights, fixes = cs.stencil_constants(cfg, cfg.dt)
+        constants = cs.stencil_constants(cfg, cfg.dt)
         dtype = getattr(torch, dname)
         u = smoke.edge_parked(torch, n, n, seed=7, device=dev).to(dtype)
         o1 = torch.empty_like(u)
         default = cs.k1_geometry(n, n, k, dtype)
         cpt = default.cpt
         geos = [default]
-        for t in range(32, cs.WIDE_THREADS + 1, 32):
-            width = t * cpt
-            if width <= 2 * k:
-                continue
-            bands = -(-n // (width - 2 * k))
-            heights = [-(-n // max(1, min(n // cs.WIDE_MIN_ROWS, cs.SMS * m // bands)))
-                       for m in (1, 2, 3, 4, 6, 12) if m * t <= cs.WIDE_WARPS_PER_SM * 32]
-            if n <= 2048:
-                heights += [4, 8, 16, 32]
-            for rows in heights:
-                g = cs.K1Geometry(width, rows, bands, -(-n // rows), cpt)
-                if g not in geos:
-                    geos.append(g)
+        for g in cs.wide_cuts(n, n, k, dtype):
+            shorter = [cs.K1Geometry(g.width, rows, g.bands, -(-n // rows), cpt)
+                       for rows in (4, 8, 16, 32)] if n <= 2048 else []
+            for c in [g, *shorter]:
+                if c not in geos:
+                    geos.append(c)
         for g in geos:
-            def launch(g=g):
+            args = cs.k1_arguments(n, n, k, dtype, constants, g)
+
+            def launch(args=args):
                 return lib.climate_multistep_stencil(
-                    u.data_ptr(), o1.data_ptr(), n, n, k, cs._DTYPE_CODES[dtype],
-                    *weights, *fixes, 0.0, g.width, g.rows, stream())
+                    u.data_ptr(), o1.data_ptr(), *args, stream())
             err = launch()
             if err:
                 raise SystemExit(f"K1 {n}² {dname} k={k} {g}: CUDA error {err}")
@@ -113,7 +111,8 @@ def main(argv) -> int:
             t = [smoke.graph_ms(torch, dev, launch, 100) for _ in range(2)]
             halo = g.bands * g.width * g.segments * (g.rows + 2 * k) / n**2
             warps = -(-g.bands * g.segments // cs.SMS) * (g.width // cpt // 32)
-            mark = " (default)" if g is default else ""
+            mark = " one-warp" if g.one_warp else " block"
+            mark += " (default)" if g is default else ""
             print(f"SWEEP K1 {n}² {dname} k={k} {g.width}x{g.rows}xc{cpt}{mark}: {t[0]:.4f} /"
                   f" {t[1]:.4f} ms; {g.bands}x{g.segments} blocks, {warps} warps an SM,"
                   f" halo x{halo:.3f}, cost {cs.wide_cost(g, k)}; {same}", flush=True)

@@ -17,7 +17,8 @@ kernel's source, the k levels one row apart with the vertical operands
 kept per level, xm/xp from the level's previous row, the edge bits as a
 per-row history and per-column bits), :func:`stream_pass_wide_emulated`
 what K1's wide body does (several columns a thread, the shuffles and the
-warps' exchange rows, the edge selects chosen per warp, each block's
+warps' exchange rows, or none in one-warp blocks, the edge selects chosen
+per warp, each block's
 rows of the fixed y sides' selects by the kernel's rule,
 :func:`select_span`, summed over a launch by :func:`k1_select_rows`),
 and the tests hold both to the plain versions in f64.
@@ -190,7 +191,7 @@ def k1_select_rows(ny: int, nx: int, k: int, dtype: torch.dtype, fix_bottom: int
 
 
 def stream_pass_wide_emulated(load, row_bits, col_bits, ny, nx, k, weights, fixes, geo,
-                              bc_value=0.0, spans=None):
+                              bc_value=0.0, spans=None, outer=None):
     """One pass of the core's wide body (``stream_band_wide``) emulated in
     f64, as :func:`stream_pass_emulated` does the one-column body, with
     ``geo`` (a :class:`K1Geometry`, ``cpt`` > 1) for the cut: ``cpt``
@@ -201,7 +202,11 @@ def stream_pass_wide_emulated(load, row_bits, col_bits, ny, nx, k, weights, fixe
     from the exchange rows: per parity and level, each warp's first and
     last column at the core's indices (a warp's entries at 2(w+1) and
     2(w+1)+1; lane 0 reads 2w+1, lane 31 2(w+2); the pads stay zero),
-    written one row earlier.  A fixed x side at a thread's first (last)
+    written one row earlier.  A cut of one-warp blocks (``geo.one_warp``)
+    has no exchange rows: lane 0 and lane 31 take what the shuffles give
+    them, their own outer column's value, or ``outer`` where given (a
+    band's outer operands reach only the columns it discards).  A fixed x
+    side at a thread's first (last)
     column replaces that column's xm (xp) in every warp; the other edge
     selects run on every row in the warps whose inner columns hold a fixed
     side, and in the other warps on the rows of the block's select span
@@ -278,8 +283,13 @@ def stream_pass_wide_emulated(load, row_bits, col_bits, ny, nx, k, weights, fixe
                 lanes = a.view(nb, nw, 32, cpt)
                 left = torch.roll(lanes[..., cpt - 1], 1, dims=2)  # __shfl_up_sync
                 right = torch.roll(lanes[..., 0], -1, dims=2)      # __shfl_down_sync
-                left[:, :, 0] = xch[:, par ^ 1, s - 1, lo_r]
-                right[:, :, 31] = xch[:, par ^ 1, s - 1, hi_r]
+                if not geo.one_warp:
+                    left[:, :, 0] = xch[:, par ^ 1, s - 1, lo_r]
+                    right[:, :, 31] = xch[:, par ^ 1, s - 1, hi_r]
+                elif outer is not None:
+                    left[:, :, 0] = right[:, :, 31] = outer
+                else:  # a lane's own value, as the shuffles give lanes 0 and 31
+                    left[:, :, 0], right[:, :, 31] = lanes[:, :, 0, cpt - 1], lanes[:, :, 31, 0]
                 xm = torch.cat([left[..., None], lanes[..., :-1]], 3).reshape(nb, w)
                 xp = torch.cat([lanes[..., 1:], right[..., None]], 3).reshape(nb, w)
                 # every warp: the ghost beyond a thread's outer columns
@@ -531,13 +541,13 @@ def test_k1_geometry_covers_every_output_once(shape, k, dtype):
 
 
 def test_band_geometry_of_the_main_path():
-    """K1 at 4096² f32, k = 8: 18 bands of 240 output columns (64 threads
-    of 4 columns), 44 segments of 94 rows, one wave of 6 blocks an SM; the
-    2048² tile (K4/K5): 19 x 32; K2's one step on it: 17 x 128 segments
-    of 16 rows.  Shapes with few blocks: the 512² dev grid halves its
-    segments to 8 rows; K3's 8-row and 8-column bands of a 2048² tile
+    """K1 at 4096² f32, k = 8: 37 bands of 112 output columns (one warp of
+    4 columns a thread), 42 segments of 98 rows, one wave of 12 blocks an
+    SM; the 2048² tile (K4/K5): 19 x 32; K2's one step on it: 17 x 128
+    segments of 16 rows.  Shapes with few blocks: the 512² dev grid halves
+    its segments to 8 rows; K3's 8-row and 8-column bands of a 2048² tile
     narrow to one-warp bands and 8-row segments."""
-    assert tcs.k1_geometry(4096, 4096, 8, torch.float32) == (256, 94, 18, 44, 4)
+    assert tcs.k1_geometry(4096, 4096, 8, torch.float32) == (128, 98, 37, 42, 4)
     assert tcs.band_geometry(2048, 2048, 8) == (128, 64, 19, 32)
     assert tcs.band_geometry(2048, 2048, 1) == (128, 16, 17, 128)
     assert tcs.band_geometry(512, 512, 8) == (128, 8, 5, 64)
@@ -549,26 +559,36 @@ def test_band_geometry_of_the_main_path():
 
 
 @pytest.mark.parametrize("k, dtype, want", [
-    (8, torch.float32, (256, 94, 18, 44, 4)), (4, torch.float32, (384, 86, 11, 48, 4)),
-    (8, torch.bfloat16, (256, 94, 18, 44, 4)), (8, torch.float64, (192, 187, 24, 22, 2))])
+    (8, torch.float32, ((128, 98, 37, 42, 4), 1.3516)),
+    (4, torch.float32, ((384, 86, 11, 48, 4), 1.1360)),
+    (8, torch.bfloat16, ((128, 98, 37, 42, 4), 1.3516)),
+    (8, torch.float64, ((64, 228, 86, 18, 2), 1.4409)),
+    (4, torch.float64, ((256, 179, 17, 23, 2), 1.1157))])
 def test_k1_geometry_of_the_bench_grid(k, dtype, want):
-    """4096², the passes of bench_4096 (k = 8, and 4 for the remainder):
-    one wave of WIDE_WARPS_PER_SM warps on each SM, the halo's share
-    (1 + 2k/(width - 2k)) x (1 + 2k/rows) at most 1.33, under the
-    one-column cut's 1.45 at k = 8; a block's threads in whole warps."""
+    """4096², the passes of bench_4096 (k = 8, and 4 for the remainder) and
+    of the parity run, as (cut, halo share): at k = 8 one-warp bands (their
+    row costs a wider block's ONE_WARP_ISSUE / ONE_WARP_CHAIN tenths), at
+    k = 4 wider blocks (below ONE_WARP_MIN_STEPS a one-warp row costs a
+    block's, and the wider band's smaller halo wins); each in one wave of
+    WIDE_WARPS_PER_SM warps on each SM, its halo's share (1 + 2k/(width -
+    2k)) x (1 + 2k/rows) pinned and under the one-column cut's; the least
+    cost among the cuts tried."""
+    cut, share = want
     g = tcs.k1_geometry(4096, 4096, k, dtype)
-    assert g == want
+    assert g == cut and g.one_warp == (k >= tcs.ONE_WARP_MIN_STEPS)
     threads = g.width // g.cpt
     assert threads % 32 == 0
     assert g.segments == tcs.SMS * (tcs.WIDE_WARPS_PER_SM // (threads // 32)) // g.bands
+    assert tcs.wide_cost(g, k) == min(tcs.wide_cost(c, k)
+                                      for c in tcs.wide_cuts(4096, 4096, k, dtype))
     halo = g.bands * g.width * g.segments * (g.rows + 2 * k) / 4096**2
-    assert halo <= 1.33
+    assert halo == pytest.approx(share, abs=5e-5)
     old = tcs.band_geometry(4096, 4096, k)
     assert halo < old.bands * old.width * old.segments * (old.rows + 2 * k) / 4096**2
 
 
 @pytest.mark.parametrize("n, dtype, want", [
-    (2048, torch.float32, (256, 24, 9, 86, 4)), (1024, torch.float32, (384, 12, 3, 86, 4)),
+    (2048, torch.float32, (128, 25, 19, 82, 4)), (1024, torch.float32, (128, 10, 10, 103, 4)),
     (512, torch.float32, (128, 5, 5, 103, 4)), (256, torch.float64, (64, 4, 6, 64, 2))])
 def test_k1_geometry_of_small_grids(n, dtype, want):
     """Grids too small to fill the SMs' warps at k = 8 (dev.yaml's 512²,
@@ -589,16 +609,31 @@ def test_k1_geometry_of_small_grids(n, dtype, want):
 
 def test_wide_cost_weighs_warps_against_the_chain():
     """A row costs the busiest SM its warps plus WIDE_WARPS_PER_SM a wave
-    (the levels' chain): halving the segments of a grid with few warps an
-    SM costs less than its taller rows save, and on a full SM the taller
-    segment wins over two waves of shorter ones."""
+    (the levels' chain), in tenths of a block warp's issue, a one-warp
+    block's warp and chain ONE_WARP_ISSUE and ONE_WARP_CHAIN tenths:
+    halving the segments of a grid with few warps an SM costs less than its
+    taller rows save; on a full SM the taller segment wins over two waves of
+    shorter ones; and at 4096² the one-warp cut, its halo 1.35 against 1.33,
+    costs less than two-warp blocks; at k = 4, below ONE_WARP_MIN_STEPS,
+    a one-warp row costs a block's, and the 4096² cut of three-warp blocks
+    (halo 1.14) costs less than the one-warp one (1.20)."""
+    w = tcs.WIDE_WARPS_PER_SM
     few = tcs.K1Geometry(128, 8, 5, 64, 4)      # 320 one-warp blocks: 3 an SM
     fewer = tcs.K1Geometry(128, 16, 5, 32, 4)   # 160: 2 an SM
-    assert tcs.wide_cost(few, 8) == 24 * (3 + tcs.WIDE_WARPS_PER_SM)
+    assert few.one_warp and tcs.wide_cost(few, 8) == 24 * (3 * tcs.ONE_WARP_ISSUE
+                                                           + w * tcs.ONE_WARP_CHAIN)
     assert tcs.wide_cost(few, 8) < tcs.wide_cost(fewer, 8)
     full = tcs.K1Geometry(256, 94, 18, 44, 4)   # 792 two-warp blocks: 12 warps an SM
     half = tcs.K1Geometry(256, 47, 18, 88, 4)   # 24 warps an SM
-    assert tcs.wide_cost(full, 8) == 110 * 24 < tcs.wide_cost(half, 8) == 63 * (24 + 24)
+    assert not full.one_warp
+    assert tcs.wide_cost(full, 8) == 110 * 240 < tcs.wide_cost(half, 8) == 63 * (240 + 240)
+    one = tcs.K1Geometry(128, 98, 37, 42, 4)    # 1554 one-warp blocks: 12 an SM
+    assert tcs.wide_cost(one, 8) == 114 * (12 * tcs.ONE_WARP_ISSUE + w * tcs.ONE_WARP_CHAIN)
+    assert tcs.wide_cost(one, 8) < tcs.wide_cost(full, 8)
+    assert tcs.ONE_WARP_MIN_STEPS == 5
+    one4 = tcs.K1Geometry(128, 92, 35, 45, 4)   # 1575 one-warp blocks: 12 an SM
+    three = tcs.K1Geometry(384, 86, 11, 48, 4)  # 528 three-warp blocks: 12 warps an SM
+    assert tcs.wide_cost(one4, 4) == 100 * 240 > tcs.wide_cost(three, 4) == 94 * 240
 
 
 def test_wide_numbers_come_from_the_core():
@@ -778,6 +813,52 @@ def test_wide_emulation_needs_the_column_bits():
     assert float((blind - want).abs().max()) > 1e-3
 
 
+# The output columns of a one-warp band (32 threads, 4 columns a thread in
+# f32 and bf16, 2 in f64) at k = 8 and 4, by (columns a thread, k).
+ONE_WARP_OUT = {(4, 8): 112, (4, 4): 120, (2, 8): 48, (2, 4): 56}
+
+
+@pytest.mark.parametrize("sign", [-1, 1], ids=["minus1", "plus1"])
+@pytest.mark.parametrize("m", [1, 2, 3])
+@pytest.mark.parametrize("cpt, k", list(ONE_WARP_OUT),
+                         ids=["c4-k8", "c4-k4", "c2-k8", "c2-k4"])
+@pytest.mark.parametrize("bc_class", ["MIX1", "P4", "D4"])
+def test_one_warp_pass_on_ragged_widths(bc_class, cpt, k, m, sign):
+    """The one-warp cut (wide_geometry's 32-thread blocks) on widths one
+    off a whole number of its bands' outputs, 112 m +- 1 at k = 8 and
+    120 m +- 1 at k = 4 with 4 columns a thread (48 m +- 1 and 56 m +- 1
+    with 2): a last band of one output column, or one short; the fixed x
+    sides at a thread's first, last or an inner column."""
+    nx, ny = ONE_WARP_OUT[(cpt, k)] * m + sign, 37
+    _, tcfg = make_cfgs(nx, ny, bc_class)
+    u = torch.from_numpy(edge_parked(ny, nx, seed=nx))
+    weights, fixes = tcs.stencil_constants(tcfg, 0.1)
+    geo = tcs.wide_geometry(ny, nx, k, cpt, 32)
+    assert geo.one_warp and geo.bands == m + (sign > 0)
+    got = stream_pass_wide_emulated(*wrap_source(u, fixes), ny, nx, k, weights, fixes, geo)
+    torch.testing.assert_close(got, tcs.multistep_pass_plain(u, tcfg, 0.1, k), rtol=0,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("outer", [0.0, 1e6, float("nan")], ids=["zero", "large", "nan"])
+@pytest.mark.parametrize("bc_class", ["MIX1", "D4", "P4"])
+def test_one_warp_band_discards_its_outer_operands(bc_class, outer):
+    """Whatever lane 0's xm and lane 31's xp are beyond a one-warp band (the
+    kernel's shuffles give each its own outer column; here zero, a large
+    value or NaN), they reach only the k columns at each side that the band
+    does not write: the emulated pass equals the plain one."""
+    nx, ny = 300, 40
+    _, tcfg = make_cfgs(nx, ny, bc_class)
+    u = torch.from_numpy(edge_parked(ny, nx, seed=5))
+    weights, fixes = tcs.stencil_constants(tcfg, 0.1)
+    geo = tcs.wide_geometry(ny, nx, 8, 4, 32)
+    assert geo.one_warp and geo.bands > 1
+    got = stream_pass_wide_emulated(*wrap_source(u, fixes), ny, nx, 8, weights, fixes, geo,
+                                    outer=outer)
+    torch.testing.assert_close(got, tcs.multistep_pass_plain(u, tcfg, 0.1, 8), rtol=0,
+                               atol=1e-12)
+
+
 DTYPES = [torch.float32, torch.float64, torch.bfloat16]
 # (bottom, top) side codes of a fixed bottom, top, and both y sides.
 Y_CODES = {"bottom": (1, 0), "top": (0, 2), "both": (3, 1)}
@@ -794,17 +875,17 @@ def test_k1_select_rows_zero_with_y_periodic(dtype, x_sides):
 
 
 @pytest.mark.parametrize("dtype, k, bottom, top, both", [
-    (torch.float64, 8, 480, 552, 552), (torch.float64, 4, 170, 221, 221),
-    (torch.float32, 8, 396, 396, 396), (torch.float32, 4, 121, 121, 121),
-    (torch.bfloat16, 8, 396, 396, 396)])
+    (torch.float64, 8, 1720, 1978, 1978), (torch.float64, 4, 170, 221, 221),
+    (torch.float32, 8, 814, 814, 814), (torch.float32, 4, 121, 121, 121),
+    (torch.bfloat16, 8, 814, 814, 814)])
 def test_k1_select_rows_of_the_parity_grid(dtype, k, bottom, top, both):
-    """4096²: f64 at k = 8 (2 columns a thread, 96 threads, 24 bands, 22
-    segments of 187 rows) runs 24 bands x (12 + 11) rows with both y sides
+    """4096²: f64 at k = 8 (2 columns a thread, one warp, 86 bands, 18
+    segments of 228 rows) runs 86 bands x (12 + 11) rows with both y sides
     fixed: the first segment's rows 6-17 (row ny - 1 wraps to window row 7,
-    row 0 is window row 8), the last's rows 174-184 of 185 (row ny - 1 at
-    176, row 0 at 177); the block-wide rule would have run 24 x (203 + 185)
-    = 9312.  A bottom side alone ends the first span at 8 + 8 + 1 rounded
-    up as well, and starts the last at 177: 24 x (12 + 8).  f32 and bf16
+    row 0 is window row 8), the last's rows 225-235 of 236 (row ny - 1 at
+    227, row 0 at 228); the block-wide rule would have run 86 x (244 + 236)
+    = 41280.  A bottom side alone ends the first span at 8 + 8 + 1 rounded
+    up as well, and starts the last at 228: 86 x (12 + 8).  f32 and bf16
     share their cut."""
     assert k1_select_rows(4096, 4096, k, dtype, 1, 0) == bottom
     assert k1_select_rows(4096, 4096, k, dtype, 0, 2) == top
@@ -851,10 +932,10 @@ def test_k1_geometry_pins_the_cut_of_a_small_grid(dtype, cuts):
 
 
 def test_k1_geometry_of_the_parity_grid():
-    """4096² f64, as the parity cell runs it: at k = 8 two columns a
-    thread, 96 threads, 24 bands, 22 segments of 187 rows; at k = 4 128
-    threads, 17 bands, 23 segments of 179 rows."""
-    assert tcs.k1_geometry(4096, 4096, 8, torch.float64) == (192, 187, 24, 22, 2)
+    """4096² f64, as the parity cell runs it: two columns a thread, at
+    k = 8 in one-warp blocks, 86 bands and 18 segments of 228 rows, at
+    k = 4 in blocks of 128 threads, 17 bands and 23 segments of 179 rows."""
+    assert tcs.k1_geometry(4096, 4096, 8, torch.float64) == (64, 228, 86, 18, 2)
     assert tcs.k1_geometry(4096, 4096, 4, torch.float64) == (256, 179, 17, 23, 2)
 
 
@@ -894,3 +975,109 @@ def test_cuda_kernel_matches_plain_on_card(cuda_device, bc_class, shape, k, dtyp
     else:
         atol = 1e-5 if dtype == torch.float32 else 1e-12
         torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+# Where the fixed x sides' columns lie in a one-warp cut: each where the
+# kernel replaces a thread's outer neighbour (the left side at a thread's
+# first column, the right at its last: the copy with the x sides' code), one
+# elsewhere (the copy with every select), one in lane 0 or lane 31 (whose
+# outer operands lie beyond the band), or a last band of one output column.
+PLACEMENTS = ("outer", "inner", "lane_ends", "ragged")
+
+
+def fixed_columns(nx, k, cpt):
+    """(lane, column of the thread, side) of each fixed x side's column in
+    the windows of the one-warp cut of an nx-wide field (side 0: x = 0,
+    the left; 1: x = nx - 1, the right), over every band."""
+    width = 32 * cpt
+    out = set()
+    for b in range(-(-nx // (width - 2 * k))):
+        for side, x in ((0, 0), (1, nx - 1)):
+            # the window columns c with (first + c) % nx == x
+            for c in range((x - (b * (width - 2 * k) - k)) % nx, width, nx):
+                out.add((c // cpt, c % cpt, side))
+    return out
+
+
+def one_warp_shape(place, k, cpt, ny=45):
+    """(nx, ny) with the least nx wider than one band whose one-warp cut at
+    k, cpt columns a thread, puts the fixed x sides' columns at ``place``
+    (PLACEMENTS); None where no width does."""
+    width = 32 * cpt
+    for nx in range(width + 1, 4 * width):
+        cols = fixed_columns(nx, k, cpt)
+        outer = [(j, side) in ((0, 0), (cpt - 1, 1)) for _, j, side in cols]
+        if {"outer": all(outer), "inner": not all(outer),
+                "lane_ends": any(lane in (0, 31) for lane, _, _ in cols),
+                "ragged": nx % (width - 2 * k) == 1}[place]:
+            return nx, ny
+    return None
+
+
+ONE_WARP_CARD_CASES = [
+    (place, k, dtype) for place in PLACEMENTS for k in (1, 2, 4, 8)
+    for dtype in (torch.float32, torch.float64, torch.bfloat16)
+    if one_warp_shape(place, k, tcs.WIDE_COLUMNS[dtype]) is not None]
+
+
+def k1_launch_at(u, cfg, k, geo):
+    """K1's C entry on ``u`` with the cut ``geo`` (not k1_geometry's)."""
+    from climate_sim_tpu_torch.ops import _build
+
+    args = tcs.k1_arguments(cfg.ny, cfg.nx, k, u.dtype, tcs.stencil_constants(cfg, 0.1), geo)
+    out = torch.empty_like(u)
+    err = _build.load_library().lib.climate_multistep_stencil(
+        u.data_ptr(), out.data_ptr(), *args, torch.cuda.current_stream(u.device).cuda_stream)
+    assert err == 0, f"K1 at {geo}: CUDA error {err}"
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("place, k, dtype", ONE_WARP_CARD_CASES)
+@pytest.mark.parametrize("bc_class", ["MIX1", "MIX2", "D4"])
+def test_one_warp_body_matches_the_block_body_on_card(cuda_device, bc_class, place, k, dtype):
+    """The wide body's one-warp instantiation (32-thread blocks) against its
+    block instantiation (64-thread blocks) on the same input: bit for bit,
+    with the fixed x sides' columns where the one-warp block replaces an
+    outer neighbour, elsewhere in a thread, in lane 0 or 31 (MIX1, D4), x
+    periodic (MIX2), and a last band of one output column; and the one-warp
+    pass against the plain version, as the core's tests hold it."""
+    cpt = tcs.WIDE_COLUMNS[dtype]
+    nx, ny = one_warp_shape(place, k, cpt)
+    _, tcfg = make_cfgs(nx, ny, bc_class)
+    u = torch.from_numpy(edge_parked(ny, nx, seed=nx)).to(cuda_device, dtype)
+    warp = tcs.wide_geometry(ny, nx, k, cpt, 32)
+    block = tcs.wide_geometry(ny, nx, k, cpt, 64)
+    assert warp.one_warp and not block.one_warp
+    got, want = k1_launch_at(u, tcfg, k, warp), k1_launch_at(u, tcfg, k, block)
+    torch.cuda.synchronize(cuda_device)
+    assert torch.equal(got, want)
+    plain = tcs.multistep_pass_plain(u, tcfg, 0.1, k)
+    if dtype == torch.bfloat16:
+        assert bool(((got.double() - plain.double()).abs() <= plain.double().abs() * 2.0**-7)
+                    .all())
+    else:
+        torch.testing.assert_close(got, plain, rtol=0,
+                                   atol=1e-5 if dtype == torch.float32 else 1e-12)
+
+
+@pytest.mark.gpu
+def test_k1_warp_bands_count_the_one_warp_launches_on_card(cuda_device):
+    """A 4096² f32 job of bench_4096's physics (100 steps: twelve 8-step
+    passes and one of 4) under tracing: ``k1.warp_bands`` counts the twelve
+    8-step launches, which run in one-warp blocks, and not the 4-step one,
+    which runs in blocks of three warps."""
+    from climate_sim_tpu_torch.runtime import tracing
+
+    cfg = make_cfgs(4096, 4096, "MIX1")[1]
+    u = torch.from_numpy(edge_parked(512, 512)).to(cuda_device, torch.float32)
+    u = u.repeat(8, 8).contiguous()
+    schedule = tcs.pass_schedule(cfg, 100)
+    assert schedule == [8] * 12 + [4]
+    before = tcs.multistep_kernel_step.launches
+    with tracing.collect() as rec:
+        for kk in schedule:
+            u = tcs.multistep_kernel_step(u, cfg, 0.1, kk)
+    torch.cuda.synchronize(cuda_device)
+    assert tcs.multistep_kernel_step.launches == before + len(schedule)
+    assert rec.counters.get("k1.warp_bands", 0) == 12

@@ -34,6 +34,7 @@ from test_torch_coverage_gaps import (  # noqa: F401  (fixtures)
     launch_env,
     make_cfg,
     needs_cc,
+    recorded,
     stub,
     stub_library,
 )
@@ -304,7 +305,50 @@ def test_k1_host_ns_grows_on_the_cuda_path(stub):
             seen.append(rec.counters["k1.host_ns"])
     assert tcs.multistep_kernel_step.launches == before + 3
     assert 0 < seen[0] < seen[1] < seen[2]
-    assert set(rec.counters) == {"k1.host_ns"} and rec.spans == []
+    # 40x100 at k = 3 is a cut of one-warp blocks, so each launch counts there too
+    assert rec.counters["k1.warp_bands"] == 3
+    assert set(rec.counters) == {"k1.host_ns", "k1.warp_bands"} and rec.spans == []
+
+
+# The shapes and k whose K1 cut is not one warp wide, by dtype: the
+# one-column body past WIDE_MAX_STEPS, and the wider blocks that cost least
+# in some passes of at most 4 steps (in f64 here, whose band of one warp is
+# 64 columns).
+NOT_ONE_WARP = {((40, 100), 9, torch.float32), ((40, 100), 9, torch.float64),
+                ((40, 100), 9, torch.bfloat16), ((300, 2000), 4, torch.float64),
+                ((1024, 1024), 4, torch.float64)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16],
+                         ids=["f32", "f64", "bf16"])
+@pytest.mark.parametrize("shape, k", [((40, 100), 8), ((40, 100), 9), ((300, 2000), 8),
+                                      ((300, 2000), 4), ((64, 64), 2), ((1024, 1024), 8),
+                                      ((1024, 1024), 4), ((256, 256), 8)])
+def test_k1_warp_bands_count_the_launches_of_one_warp_cuts(stub, shape, k, dtype):
+    """``k1.warp_bands`` adds each launch that runs the wide body in
+    one-warp blocks, and nothing for the others (NOT_ONE_WARP: wider
+    blocks, the one-column body beyond WIDE_MAX_STEPS); the launches'
+    cut width says which ran."""
+    ny, nx = shape
+    cfg, u = make_cfg(nx, ny), cuda_like(torch.zeros(ny, nx, dtype=dtype))
+    with tracing.collect() as rec:
+        for _ in range(2):
+            tcs.multistep_kernel_step(u, cfg, 0.1, k)
+    one_warp = (shape, k, dtype) not in NOT_ONE_WARP
+    assert rec.counters.get("k1.warp_bands", 0) == 2 * one_warp
+    assert ("k1.warp_bands" in rec.counters) == one_warp
+    width = recorded(stub)[1][-3]
+    assert (width == 32 * tcs.WIDE_COLUMNS[dtype]) == one_warp
+
+
+def test_k1_warp_bands_silent_while_tracing_is_off(stub):
+    """With tracing off a one-warp launch adds no counter anywhere."""
+    cfg, u = make_cfg(100, 40), cuda_like(torch.rand(40, 100))
+    assert tcs.k1_geometry(40, 100, 8, torch.float32).one_warp
+    tcs.multistep_kernel_step(u, cfg, 0.1, 8)
+    with tracing.collect() as rec:
+        pass
+    assert rec.counters == {}
 
 
 def test_k1_host_ns_never_on_the_plain_path():
