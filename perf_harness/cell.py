@@ -17,23 +17,35 @@ card (:mod:`ranks`).  Rank 0 decides what all do, phase by phase:
    The window is the longest rank's.  Each job's final field is kept on
    the card; the card's allocator peak is read after the first job
    returns and before its field is kept, so it is the program's own.
+   With the traffic's output on, every job writes its snapshot file into
+   the run's own directory (:class:`ranks.Ranks` makes it, and removes it
+   when the run ends), each job over the last one's; right after the
+   window the last job's file is renamed aside, so the jobs after it
+   leave it as the window wrote it.
 3. ``trace`` (``--trace 1`` only): :data:`REPEATS` more jobs of the
    window's shape, each inside the program's ``collect()`` without the
    profiler, then one inside it under the harness's own profiler, reduced
    to each card's summary (:mod:`trace`); it hands back what the program
    recorded in its observed jobs.
 4. ``check``: each kept field against the plain reference, computed again
-   from the job's inputs (:mod:`reference`), tile by tile on each rank.
+   from the job's inputs (:mod:`reference`), tile by tile on each rank;
+   with output on, then each record of the file kept aside, read by the
+   harness's own reader (:mod:`cdf5`), against the reference at the
+   record's step (:func:`record_steps`).  A record the file lacks, one it
+   holds beyond the job's, and every record of a file that is not the
+   job's (no ``u``, another type or shape) reads NaN, so it fails.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import sys
 import tempfile
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import cdf5
 import jobs
 import program
 import reference
@@ -44,6 +56,22 @@ BANNED = ("jax", "jaxlib", "flax", "climate_sim_tpu")
 # window, besides the calibration job: per-call readings swing from job to
 # job, so their readers take the median of these and the calibration job.
 REPEATS = 8
+# The name under which the last window job's snapshot file is kept.
+KEPT_FILE = "window_last.nc"
+
+
+def record_steps(traffic: dict, steps: Optional[int] = None) -> List[int]:
+    """The steps at which a job of ``traffic`` writes a snapshot record:
+    0, ``out_every``, ... below its ``steps`` (default ``job_steps``);
+    none with output off."""
+    if not traffic.get("output", False):
+        return []
+    return list(range(0, int(steps or traffic["job_steps"]), int(traffic["out_every"])))
+
+
+def worst(errs: Sequence[float]) -> float:
+    """The largest of the gaps, NaN if any is (or if there is none)."""
+    return math.nan if not errs or any(math.isnan(e) for e in errs) else max(errs)
 
 
 def banned_modules(modules: Sequence[str]) -> List[str]:
@@ -85,7 +113,9 @@ class Rank:
     """One rank's side of a cell run, on ``devices``."""
 
     def __init__(self, rank: int, world: int, config: dict, traffic: dict, seed: int,
-                 port: int, devices):
+                 port: int, devices, out_dir: Optional[str] = None):
+        """``out_dir``: the directory every rank's jobs write their snapshot
+        file into, with the traffic's output on."""
         self.rank = rank
         self.config, self.traffic, self.seed = config, traffic, int(seed)
         self.spec = f"localhost:{port},{world},{rank}" if world > 1 else ""
@@ -93,14 +123,29 @@ class Rank:
         self.cuda = self.devices[0].type == "cuda"
         self.scheme = reference.Scheme.from_config(config)
         self.kept = []    # (hotspot, the program's final field) of the window's jobs
+        self.out_dir = out_dir
+        # the last window job's snapshot file, set aside, and its records' steps
+        self.records: Optional[Tuple[str, List[int]]] = None
+        self.found = 0  # the records the kept file held at the check
         self.memory_peak = 0
         self.program: Dict[str, object] = {}  # observed jobs, by phase
 
     def call(self, steps: int, spot, precision: Optional[str] = None):
         cfg = program.sim_config(self.config, self.traffic, steps, spot,
                                  distributed=self.spec, precision=precision,
-                                 output_dir=tempfile.gettempdir())
+                                 output_dir=self.out_dir or tempfile.gettempdir())
         return program.run(cfg, self.devices)
+
+    def _set_aside(self, result, steps: int) -> None:
+        """With output on, rename the file that ``result``'s job of
+        ``steps`` steps wrote to :data:`KEPT_FILE` (rank 0, which created
+        it; every rank keeps its path)."""
+        due = record_steps(self.traffic, steps)
+        if not due:
+            return
+        self.records = (os.path.join(self.out_dir, KEPT_FILE), due)
+        if self.rank == 0:
+            os.replace(result.output_path, self.records[0])
 
     def setup(self, traced: bool = False) -> float:
         """The warm-up job and the calibration job; the latter's wall.
@@ -130,8 +175,9 @@ class Rank:
                 self.memory_peak = self._allocated_peak()
             self.kept.append((spot, result.u))
             lines += out
-        return {"wall_s": time.perf_counter() - t0, "t0": t0, "lines": lines,
-                "memory_peak": self.memory_peak}
+        wall = time.perf_counter() - t0
+        self._set_aside(result, steps)
+        return {"wall_s": wall, "t0": t0, "lines": lines, "memory_peak": self.memory_peak}
 
     def _allocated_peak(self) -> int:
         import torch
@@ -162,7 +208,9 @@ class Rank:
 
     def check(self, steps: Optional[int] = None) -> List[float]:
         """Each kept job's largest gap to the reference over this rank's
-        tiles, as a share of the job's amplitude (NaN for a NaN)."""
+        tiles, as a share of the job's amplitude (NaN for a NaN); with
+        output on, then each record slot of the kept file alike
+        (:meth:`_records`)."""
         import torch
 
         steps = int(steps or self.traffic["job_steps"])
@@ -179,8 +227,44 @@ class Rank:
             refs = reference.evolve_separable(spots, self.scheme, steps, win, dev)
             for i, ((spot, u), ref) in enumerate(zip(self.kept, refs)):
                 tile = u if isinstance(u, torch.Tensor) else u[ty][tx]
-                err = reference.max_error(tile, ref) / spot.A
-                errs[i] = math.nan if math.isnan(err) or math.isnan(errs[i]) else max(errs[i], err)
+                errs[i] = _worse(errs[i], reference.max_error(tile, ref) / spot.A)
+            del refs
+        if self.records is not None:
+            errs += self._records(self.kept[-1][0], windows, dev)
+        return errs
+
+    def _records(self, spot, windows, dev) -> List[float]:
+        """Each record slot of the kept file: the largest gap of this rank's
+        tiles of the record to the reference at its step, as a share of the
+        amplitude.  One slot a record the job writes, or the file holds if
+        that is more; NaN for a record missing or extra, and for every slot
+        when the file is not the job's."""
+        import torch
+
+        path, steps = self.records
+        try:
+            f = cdf5.Cdf5File(path)
+            fits = (f.variables["u"].nc_type == cdf5.NC_DOUBLE
+                    and f.shape("u") == (None, self.scheme.ny, self.scheme.nx))
+            found = f.numrecs
+        except (OSError, ValueError, KeyError):
+            fits, found = False, 0
+        self.found = found
+        errs = [math.nan] * max(len(steps), found)
+        if not fits:
+            return errs
+        due = steps[:found]
+        errs[:len(due)] = [0.0] * len(due)
+        for win in windows.values():
+            y0, y1, x0, x1 = win or (0, self.scheme.ny, 0, self.scheme.nx)
+            refs = reference.evolve_separable_series([spot], self.scheme, due, win, dev)
+            for i, (ref,) in enumerate(refs):
+                try:
+                    rec = torch.from_numpy(f.record("u", i)[y0:y1, x0:x1]).to(dev)
+                except ValueError:
+                    errs[i] = math.nan
+                    continue
+                errs[i] = _worse(errs[i], reference.max_error(rec, ref) / spot.A)
             del refs
         return errs
 
@@ -193,10 +277,16 @@ class Rank:
         steps = int(steps or self.traffic["job_steps"])
         result, _, _ = self.call(steps, spot, precision)
         self.kept = [(spot, result.u)]
+        self._set_aside(result, steps)
         try:
             return self.check(steps)
         finally:
-            self.kept = []
+            self.kept, self.records = [], None
+
+    def record_count(self) -> Optional[Tuple[int, int]]:
+        """(the records the kept file held at the check, the records its
+        job writes); None with output off."""
+        return None if self.records is None else (self.found, len(self.records[1]))
 
     def modules(self) -> List[str]:
         return banned_modules(list(sys.modules))
@@ -205,13 +295,19 @@ class Rank:
         program.leave()
 
 
+def _worse(seen: float, err: float) -> float:
+    """The larger of two gaps, NaN if either is."""
+    return math.nan if math.isnan(seen) or math.isnan(err) else max(seen, err)
+
+
 def result(summary: dict, metrics: Dict[str, dict], device: dict, errs: List[float],
-           limit: float, breakdown: Optional[dict]) -> dict:
+           limit: float, breakdown: Optional[dict],
+           records: Optional[Tuple[int, int]] = None) -> dict:
     """The result line: ``correct``, ``attempted``, ``failed``, ``metrics``,
-    ``device``, the optional ``breakdown``, and last the compared number
-    beside its limit."""
+    ``device``, the optional ``breakdown``, and last the compared numbers
+    beside their limits: the largest gap, and with output on the records
+    the kept file held beside those its job writes (``records``)."""
     failed = sum(1 for e in errs if not e <= limit)
-    worst = math.nan if not errs or any(math.isnan(e) for e in errs) else max(errs)
     line = {
         "correct": bool(errs) and failed == 0,
         "attempted": len(errs),
@@ -221,5 +317,7 @@ def result(summary: dict, metrics: Dict[str, dict], device: dict, errs: List[flo
     }
     if breakdown is not None:
         line["breakdown"] = breakdown
-    line["checks"] = {"max_err_rel": {"value": worst, "limit": limit}}
+    line["checks"] = {"max_err_rel": {"value": worst(errs), "limit": limit}}
+    if records is not None:
+        line["checks"]["records"] = {"value": records[0], "limit": records[1]}
     return line

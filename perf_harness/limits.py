@@ -8,10 +8,11 @@ through the program in ``--precision`` (default the configuration's: the
 sound runs, whose largest reading is the limit's lower end; ``bf16``, the
 program's own lower-precision storage path: the control, whose smallest
 reading is its upper end), compared with the plain reference as a run's
-check compares it.  Every seed in one process (one a rank), so set-up is
-paid once.  Prints one line a seed and, last, a JSON object of the
-readings.  Needs the card(s) the cell asks for; the benchmark's own runs
-never run it.
+check compares it (its final field and, with the traffic's output on,
+each record of its snapshot file; the largest gap of them all).  Every
+seed in one process (one a rank), so set-up is paid once.  Prints one
+line a seed and, last, a JSON object of the readings.  Needs the
+card(s) the cell asks for; the benchmark's own runs never run it.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 sys.path.insert(1, os.getcwd())
 
+import cell  # noqa: E402
 from layout import Layout  # noqa: E402
 from ranks import Ranks  # noqa: E402
 
@@ -52,7 +54,7 @@ def main(argv=None) -> int:
         for seed in (int(s) for s in a.seeds.split(",")):
             t0 = time.perf_counter()
             errs = group.do("probe", seed, a.precision, a.steps)
-            readings[seed] = max(e[0] for e in errs)
+            readings[seed] = cell.worst([cell.worst(e) for e in errs])
             print(f"limits: seed {seed} precision {a.precision or config['precision']}"
                   f" max_err_rel {readings[seed]!r} ({time.perf_counter() - t0:.1f} s)",
                   flush=True)

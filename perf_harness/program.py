@@ -24,8 +24,9 @@ def sim_config(config: dict, traffic: dict, steps: int, spot: Hotspot, *,
                distributed: str = "", precision: Optional[str] = None,
                output_dir: str = "."):
     """The program's config for one job of a cell: the configuration file's
-    grid, physics, time step, BCs, precision and mesh, the traffic's span,
-    output off, and the job's hotspot."""
+    grid, physics, time step, BCs, precision and mesh, the traffic's span
+    and output (on or off; its file goes into ``output_dir``), and the
+    job's hotspot."""
     from climate_sim_tpu_torch.config import load_yaml_dict
 
     layout = config.get("layout", {})

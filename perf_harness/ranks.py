@@ -6,13 +6,19 @@ driven over a pipe.
 rank at once and returns the results in rank order.  A rank that raises
 sends its traceback back, and the phase raises it here.  :meth:`Ranks.close`
 stops every process and waits for it, whatever happened.
+
+With the traffic's output on, the group makes one fresh directory for the
+run's snapshot files (``tempfile.mkdtemp``), which every rank's jobs write
+into, and :meth:`Ranks.close` removes it with all it holds.
 """
 
 from __future__ import annotations
 
 import multiprocessing as mp
+import shutil
 import socket
 import sys
+import tempfile
 import traceback
 from typing import List
 
@@ -28,11 +34,12 @@ def free_port() -> int:
 
 
 def _serve(conn, rank: int, world: int, config: dict, traffic: dict, seed: int,
-           port: int, kind: str) -> None:
+           port: int, kind: str, out_dir) -> None:
     """A rank's process: run each phase rank 0 sends until it sends None."""
     sys.stdout = sys.stderr  # the result line is rank 0's alone
     try:
-        me = cell.Rank(rank, world, config, traffic, seed, port, cell.rank_devices(kind, rank))
+        me = cell.Rank(rank, world, config, traffic, seed, port, cell.rank_devices(kind, rank),
+                       out_dir)
     except BaseException:
         conn.send(("error", traceback.format_exc()))
         raise
@@ -56,16 +63,19 @@ class Ranks:
         port = free_port() if world > 1 else 0
         ctx = mp.get_context("spawn")
         self.procs, self.conns = [], []
+        self.out_dir = (tempfile.mkdtemp(prefix="perf_harness_out_")
+                        if traffic.get("output", False) else None)
         try:
             for r in range(1, world):
                 mine, theirs = ctx.Pipe()
                 p = ctx.Process(target=_serve, args=(theirs, r, world, config, traffic,
-                                                     seed, port, kind), daemon=True)
+                                                     seed, port, kind, self.out_dir),
+                                daemon=True)
                 p.start()
                 self.procs.append(p)
                 self.conns.append(mine)
             self.local = cell.Rank(0, world, config, traffic, seed, port,
-                                   cell.rank_devices(kind, 0))
+                                   cell.rank_devices(kind, 0), self.out_dir)
             self._collect()
         except BaseException:
             self.close()
@@ -105,3 +115,5 @@ class Ranks:
                 p.join()
         for conn in self.conns:
             conn.close()
+        if self.out_dir is not None:
+            shutil.rmtree(self.out_dir, ignore_errors=True)

@@ -236,23 +236,44 @@ def evolve_separable(spots: Sequence[Hotspot], s: Scheme, steps: int,
                      device="cpu") -> List[torch.Tensor]:
     """The fields of each hotspot after ``steps`` steps, float64, each cut
     to ``window`` (y0, y1, x0, x1), default the whole grid."""
+    return evolve_separable_series(spots, s, [steps], window, device)[0]
+
+
+def evolve_separable_series(spots: Sequence[Hotspot], s: Scheme, counts: Sequence[int],
+                            window: Optional[Tuple[int, int, int, int]] = None,
+                            device="cpu") -> List[List[torch.Tensor]]:
+    """For each number of steps in ``counts``, the fields of each hotspot
+    after that many steps, as :func:`evolve_separable` gives them.  The
+    powers of each 1-D part are taken once for all the counts: by squaring
+    up to the lowest power any count needs, then one step at a time up to
+    the highest, so a series of snapshots costs about as much as its last."""
     y0, y1, x0, x1 = window if window is not None else (0, s.ny, 0, s.nx)
     a, b = split(s)
-    j0, w = binomial_window(steps, a)
-    w = w.to(device)
-    m = w.numel()
+    weights = [binomial_window(steps, a) for steps in counts]
     prof = [h.profiles(s, torch.float64, device) for h in spots]
     gy = torch.stack([p[0] for p in prof], dim=1)  # (ny, J)
     gx = torch.stack([p[1] for p in prof], dim=1)  # (nx, J)
-    # A part with no share has no weights: only its power 0 appears.
-    xs = _powers(gx, s, "x", a, j0, m) if a > 0.0 else gx[None]  # x part ^ (j0 + i)
-    ys = (_powers(gy, s, "y", b, steps - j0 - m + 1, m).flip(0)  # y part ^ (S - j0 - i)
-          if b > 0.0 else gy[None])
+    # Term i of a count S takes the x part ^ (j0 + i) and the y part ^
+    # (S - j0 - i).  A part with no share has no weights: only its power 0
+    # appears.
+    xlo = min(j0 for j0, _ in weights)
+    xhi = max(j0 + w.numel() for j0, w in weights)
+    ylo = min(steps - j0 - w.numel() + 1 for steps, (j0, w) in zip(counts, weights))
+    yhi = max(steps - j0 + 1 for steps, (j0, _) in zip(counts, weights))
+    xs = _powers(gx, s, "x", a, xlo, xhi - xlo) if a > 0.0 else gx[None]
+    ys = _powers(gy, s, "y", b, ylo, yhi - ylo) if b > 0.0 else gy[None]
     out = []
-    for i, h in enumerate(spots):
-        px = xs[:, x0:x1, i]        # (m, nx')
-        py = ys[:, y0:y1, i]        # (m, ny')
-        out.append(h.A * (py.T @ (w[:, None] * px)))
+    for steps, (j0, w) in zip(counts, weights):
+        m = w.numel()
+        w = w.to(device)
+        px_all = xs[j0 - xlo:j0 - xlo + m] if a > 0.0 else xs
+        py_all = ys[steps - j0 - m + 1 - ylo:steps - j0 + 1 - ylo].flip(0) if b > 0.0 else ys
+        fields = []
+        for i, h in enumerate(spots):
+            px = px_all[:, x0:x1, i]        # (m, nx')
+            py = py_all[:, y0:y1, i]        # (m, ny')
+            fields.append(h.A * (py.T @ (w[:, None] * px)))
+        out.append(fields)
     return out
 
 

@@ -9,8 +9,10 @@ configuration, traffic and metric readers are found by name
 standard output is one JSON object: ``correct``, ``attempted``,
 ``failed``, ``metrics`` (the cell's end-to-end metrics with ``--trace 0``,
 its per-layer metrics with ``--trace 1``), ``device``, with ``--trace 1``
-a ``breakdown``, and last ``checks``, the compared number beside its
-limit, which are also the last lines of standard error.
+a ``breakdown``, and last ``checks``, the compared numbers beside their
+limits, which are also the last lines of standard error.  ``attempted``
+counts each window job's final field and, with the traffic's output on,
+each record slot of the last window job's snapshot file (:mod:`cell`).
 
 The summary each metric reader gets:
 
@@ -97,6 +99,7 @@ def run_cell(layout: Layout, workload: str, seed: int, seconds: float, traced: b
         traces = group.do("trace") if traced else None
         t_trace, t = time.perf_counter() - t, time.perf_counter()
         errs_by_rank = group.do("check")
+        records = group.do("record_count")[0]
         print(f"phases: trace {t_trace:.3f} s, check {time.perf_counter() - t:.3f} s",
               file=sys.stderr)
         modules = sorted({m for ms in group.do("modules") for m in ms})
@@ -107,8 +110,7 @@ def run_cell(layout: Layout, workload: str, seed: int, seconds: float, traced: b
     if modules:
         raise RuntimeError(f"the run loaded {modules}: the benchmark must not load JAX"
                            " or the JAX package")
-    errs = [max(es) if not any(math.isnan(e) for e in es) else math.nan
-            for es in zip(*errs_by_rank)]
+    errs = [cell.worst(es) for es in zip(*errs_by_rank)]
     window = {"wall_s": max(r["wall_s"] for r in wins), "jobs": count,
               "steps": count * int(traffic["job_steps"]),
               "points": int(config["grid"]["nx"]) * int(config["grid"]["ny"]),
@@ -147,9 +149,15 @@ def run_cell(layout: Layout, workload: str, seed: int, seconds: float, traced: b
                     print(f"program: {job} {i} rank {r}: {one}", file=sys.stderr)
     metrics = layout.read(workload, "per_layer" if traced else "end_to_end", summary)
     limit = float(config["limits"]["max_err_rel"])
+    steps = cell.record_steps(traffic)
     for i, e in enumerate(errs):
-        print(f"check: job {i} max_err_rel {e!r} limit {limit!r}", file=sys.stderr)
-    line = cell.result(summary, metrics, device, errs, limit, breakdown)
+        what = (f"job {i}" if i < count else
+                f"record {i - count} (step {steps[i - count]})" if i - count < len(steps) else
+                f"record {i - count} (beyond the job's)")
+        print(f"check: {what} max_err_rel {e!r} limit {limit!r}", file=sys.stderr)
+    line = cell.result(summary, metrics, device, errs, limit, breakdown, records)
+    if records is not None:
+        print(f"check: records {records[0]} limit {records[1]}", file=sys.stderr)
     print(f"check: max_err_rel {line['checks']['max_err_rel']['value']!r} limit {limit!r}",
           file=sys.stderr)
     return line

@@ -1,8 +1,9 @@
 """A small copy of the benchmark's layout for the CPU tests: the real
 ``BENCHMARK.json``, metric readers and traffic, with each configuration's
 grid and each job cut so that a whole cell runs in seconds on the CPU;
-and a cell over a 2x2 mesh of ranks, added as new files and entries
-alone, to drive the harness's ranks (gloo on the CPU)."""
+a cell over a 2x2 mesh of ranks, added as new files and entries alone,
+to drive the harness's ranks (gloo on the CPU); and a cell with its
+output on, to drive the snapshot files and their check."""
 
 import json
 import os
@@ -18,14 +19,23 @@ for p in (HARNESS, REPO):
 GRID = 96
 JOB_STEPS = 1200
 MESH_CELL = "mesh96.gloo4"
+FRAMES_CELL = "bench96.frames"
+FRAMES_STEPS = 400
 
 
-def tiny_layout(root: str, grid: int = GRID, job_steps: int = JOB_STEPS) -> str:
-    """Write the tiny layout under ``root``; returns its harness folder."""
+def copy_layout(root: str) -> str:
+    """Copy the benchmark's layout, as it is, under ``root``; returns its
+    harness folder."""
     harness = os.path.join(root, "perf_harness")
     for sub in ("configs", "traffic", "metrics"):
         shutil.copytree(os.path.join(HARNESS, sub), os.path.join(harness, sub))
     shutil.copy(os.path.join(REPO, "BENCHMARK.json"), root)
+    return harness
+
+
+def tiny_layout(root: str, grid: int = GRID, job_steps: int = JOB_STEPS) -> str:
+    """Write the tiny layout under ``root``; returns its harness folder."""
+    harness = copy_layout(root)
     for name in os.listdir(os.path.join(harness, "configs")):
         path = os.path.join(harness, "configs", name)
         with open(path) as f:
@@ -68,3 +78,23 @@ def add_mesh_cell(root: str, harness: str) -> str:
     with open(path, "w") as f:
         json.dump(bench, f)
     return MESH_CELL
+
+
+def add_frames_cell(root: str, harness: str, job_steps: int = FRAMES_STEPS,
+                    name: str = FRAMES_CELL) -> str:
+    """A cell of the layout's ``bench_4096`` with its output on: jobs of
+    ``job_steps`` steps that write a record every 100, the hotspots
+    ``bench4096.single``'s; returns its name."""
+    with open(os.path.join(harness, "traffic", "bench4096.single.json")) as f:
+        traffic = json.load(f)
+    traffic.update(output=True, out_every=100, job_steps=job_steps, why="output on")
+    with open(os.path.join(harness, "traffic", f"{name}.json"), "w") as f:
+        json.dump(traffic, f)
+    path = os.path.join(root, "BENCHMARK.json")
+    with open(path) as f:
+        bench = json.load(f)
+    bench["workloads"].append({"name": name, "config": "bench_4096",
+                               "traffic": name, "chips": 1, "why": "a test"})
+    with open(path, "w") as f:
+        json.dump(bench, f)
+    return name

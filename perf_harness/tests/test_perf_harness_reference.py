@@ -78,6 +78,23 @@ def test_separable_equals_stepping(bc):
             assert torch.equal(f[3:11, 5:20], p)
 
 
+@pytest.mark.parametrize("bc", [("dirichlet", "neumann", "periodic", "periodic"),
+                                ("dirichlet",) * 4, ("periodic",) * 4])
+@pytest.mark.parametrize("D,vx,vy", [(0.05, 0.5, -0.25), (0.0, 0.5, 0.0), (0.0, 0.0, 0.0)])
+def test_a_series_equals_stepping(bc, D, vx, vy):
+    """Each count of a series, the powers taken once for all counts (a part
+    with no share among the physics), against the scheme stepped to it."""
+    s = R.Scheme(23, 17, 1.0, 1.3, D, vx, vy, 0.1, bc)
+    spots = [R.Hotspot(1.3, 0.2, 0.3, 0.8), R.Hotspot(0.7, 0.1, 0.9, 0.05)]
+    counts = [0, 40, 80, 150]
+    series = R.evolve_separable_series(spots, s, counts, window=(3, 11, 5, 20))
+    for i, h in enumerate(spots):
+        u, done = h.field(s), 0
+        for count, fields in zip(counts, series):
+            u, done = R.evolve_plain(u, s, count - done), count
+            assert float((u[3:11, 5:20] - fields[i]).abs().max()) < 1e-12
+
+
 def test_separable_diffusion_only_and_still():
     bc = ("dirichlet", "neumann", "periodic", "periodic")
     h = R.Hotspot(1.0, 0.15, 0.4, 0.6)
